@@ -1,0 +1,731 @@
+"""Typed configuration for the shuffle framework.
+
+Port of ``sparkucx_tpu/config.py`` (a verbatim copy): the same fields and the
+same ``spark.shuffle.tpu.*`` keys, so one conf drives both packages.  Knobs of
+subsystems this package has not ported yet parse and validate but are not read.
+
+Counterpart of ``UcxShuffleConf`` (UcxShuffleConf.scala:18-93): a typed namespace over
+string key/value config, with the same knobs (renamed ``spark.shuffle.ucx.*`` ->
+``spark.shuffle.tpu.*``) plus the TPU-specific ones.  Hardcoded POC constants the
+reference buried in code are first-class options here (SURVEY.md section 5.6):
+device-space sizing (NvkvHandler.scala:26-29), store port 1338
+(CommonUcxShuffleManager.scala:84-89), 512-byte alignment (NvkvHandler.scala:244-256).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from dataclasses import dataclass, field
+from typing import Dict, Mapping, Optional, Tuple
+
+_SIZE_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*([kmgt]?i?b?)\s*$", re.IGNORECASE)
+_UNITS = {
+    "": 1, "b": 1,
+    "k": 1 << 10, "kb": 1 << 10, "kib": 1 << 10,
+    "m": 1 << 20, "mb": 1 << 20, "mib": 1 << 20,
+    "g": 1 << 30, "gb": 1 << 30, "gib": 1 << 30,
+    "t": 1 << 40, "tb": 1 << 40, "tib": 1 << 40,
+}
+
+
+def parse_size(text) -> int:
+    """Parse '4k' / '1m' / '30MB' style sizes (Spark's byte-string conf format)."""
+    if isinstance(text, (int, float)):
+        return int(text)
+    m = _SIZE_RE.match(str(text))
+    if not m:
+        raise ValueError(f"unparseable size: {text!r}")
+    return int(float(m.group(1)) * _UNITS[m.group(2).lower()])
+
+
+CONF_PREFIX = "spark.shuffle.tpu"
+
+
+@dataclass
+class TpuShuffleConf:
+    """All framework knobs.  Field-by-field provenance:
+
+    ===============================  ==============================================
+    prealloc_buffers                 spark.shuffle.ucx.memory.preAllocateBuffers
+                                     (UcxShuffleConf.scala:21-31) — size->count map
+    min_buffer_size                  ...memory.minBufferSize = 4096 (:33-39)
+    min_allocation_size              ...memory.minAllocationSize = 1 MiB (:41-48)
+    listener_address                 ...listener.sockaddr = "0.0.0.0:0" (:50-56)
+    use_wakeup                       ...useWakeup = true (:58-64)
+    num_io_threads                   ...numIoThreads = 1 (:66-71)
+    num_listener_threads             ...numListenerThreads = 3 (:73-78)
+    num_client_workers               ...numWorkers (defaults to executor cores,
+                                     :80-86)
+    max_blocks_per_request           ...maxBlocksPerRequest = 50 (:88-93)
+    block_alignment                  NVKV 512-byte write alignment
+                                     (NvkvHandler.scala:244-256); 512 = one
+                                     exchange row of 128 int32 lanes
+    staging_capacity_per_executor    NVKV device-space carve-up / 30 MB read buf
+                                     (NvkvHandler.scala:26-29,
+                                     NvkvShuffleMapOutputWriter.scala:94-103)
+    store_port                       DPU daemon port 1338
+                                     (CommonUcxShuffleManager.scala:84-89)
+    ===============================  ==============================================
+    """
+
+    # memory pool (L1)
+    prealloc_buffers: Dict[int, int] = field(default_factory=dict)
+    min_buffer_size: int = 4096
+    min_allocation_size: int = 1 << 20
+    max_host_pool_bytes: int = 1 << 31
+
+    # transport / workers (L3)
+    listener_address: Tuple[str, int] = ("0.0.0.0", 0)
+    use_wakeup: bool = True
+    num_io_threads: int = 1
+    num_listener_threads: int = 3
+    num_client_workers: int = 1
+    max_blocks_per_request: int = 50
+    #: Per-block pull-path retries after a failed batch fetch (the reference
+    #: never retries — SURVEY.md section 5.3); 0 disables the fallback.
+    fetch_retries: int = 1
+
+    # striped zero-copy wire path (transport/peer.py)
+    #: Parallel TCP connections (lanes) per peer pair.  1 (default) is the
+    #: single-lane path, byte-identical to the pre-striping wire protocol.
+    #: With K > 1, large fetch replies stream as fixed chunk frames striped
+    #: round-robin across the K lanes (AM ids 5-6, core/definitions.py) and
+    #: each lane's recv thread scatters its chunks into the result buffers
+    #: concurrently — the FAST/SparkUCX parallel-stream prescription for
+    #: saturating a host link from Python.
+    wire_streams: int = 1
+    #: Chunk frame payload size for striped replies.  Smaller chunks spread
+    #: a single hot reply across lanes sooner; larger chunks cut per-frame
+    #: syscall + header overhead.  4 MiB is the measured knee on loopback
+    #: (1 MiB loses ~15% to per-frame overhead; see docs/PERF.md).
+    wire_chunk_bytes: int = 4 << 20
+    #: Reduce-side fetch credit budget in bytes: the reader keeps issuing
+    #: fetch windows while their expected reply bytes fit the budget, so many
+    #: windows pipeline instead of strictly alternating request/drain.  A
+    #: request larger than the whole budget is admitted alone (never starved).
+    #: 0 disables pipelining — one window in flight, the historical loop.
+    wire_credit_bytes: int = 64 << 20
+    #: SO_SNDBUF/SO_RCVBUF for every peer/daemon socket, both ends; 0 keeps
+    #: the platform default plus the transport's builtin 4 MiB reply windows.
+    wire_sock_buf_bytes: int = 0
+    #: Socket timeout (ms) for connect/handshake and every mid-frame read on
+    #: both client and server wire paths.  A peer that hangs (alive socket, no
+    #: bytes) mid-frame for longer than this raises a TransportError naming the
+    #: peer address instead of blocking forever.  Idle waits between frames are
+    #: exempt — only a partially received frame can time out.  0 = no timeout
+    #: (the historical block-forever behavior).
+    wire_timeout_ms: int = 30000
+
+    # fault tolerance (replication + reducer failover)
+    #: Number of ring-neighbor executors that receive an asynchronous copy of
+    #: each sealed round's host snapshot (REPLICA_PUT frames).  0 (default)
+    #: disables replication entirely — no frames, no replica storage, wire and
+    #: store behavior byte-identical to pre-replication builds.  With factor k,
+    #: executor e pushes to the k successors of e in the sorted executor ring,
+    #: and reducers fail over to those replicas when the primary dies.
+    replication_factor: int = 0
+    #: Reduce-side fetch deadline (ms) per window: if a window's requests have
+    #: not completed within this budget the reader declares the peer hung,
+    #: fails the window locally, and enters the retry/failover path.  0 = wait
+    #: forever (historical behavior).
+    fetch_deadline_ms: int = 30000
+    #: Base backoff (ms) between reduce-side fetch retry attempts; actual
+    #: sleep is jittered uniformly in [base/2, base] and doubles per attempt
+    #: (bounded exponential backoff, decorrelated across reducers).
+    fetch_backoff_ms: int = 50
+    #: Per-chunk CRC32C on striped-wire chunk frames and REPLICA_PUT frames.
+    #: The 4-byte checksum rides as a header extension, detected by header
+    #: length on the receiving side, so mixed-config peers interoperate.  A
+    #: mismatch raises a typed BlockCorruptError that enters the reducer's
+    #: retry/failover path — corruption becomes a detected, recovered fault
+    #: instead of silent bad bytes.  Default off: frames stay byte-identical
+    #: to the golden captures the CI wire gate pins.
+    wire_checksum: bool = False
+    #: Lossless wire compression codec for striped-wire chunk frames and
+    #: REPLICA_PUT bodies: 'off' (default) | 'dict' | 'rle' | 'delta'
+    #: (utils/pagecodec.py page formats).  The codec id and decoded length
+    #: ride as a chunk-header extension (core/definitions.py), each lane's
+    #: recv thread decodes independently into the chunk's final buffer
+    #: offset, and unprofitable pages fall back to raw per chunk — lossless
+    #: always, bit-identical shuffle results.  Composes with wire_checksum
+    #: (crc covers the encoded bytes) and the CreditGate (credits account
+    #: DECODED bytes — the reader admits windows by expected block sizes,
+    #: which are decoded sizes; wire savings show up as faster drains, not
+    #: looser admission).  Default off: frames stay byte-identical to the
+    #: golden captures the CI wire gate pins.
+    wire_compress_codec: str = "off"
+    #: Pages smaller than this ship raw without attempting encode — below a
+    #: few KiB the codec header + python-call overhead beats any shrink.
+    compress_min_chunk_bytes: int = 4096
+    #: Lossy block quantization of aggregate-tolerant ICI exchange payloads
+    #: (ops/relational.py groupby partials; ops/ici_exchange.py quantized
+    #: builders): 'off' (default) | 'int8' (linear scale per block) |
+    #: 'blockfloat' (power-of-two shared exponent per block).  OPT-IN LOSSY:
+    #: float aggregate lanes travel as int8 (4x fewer exchange bytes) with a
+    #: per-block scale, bounding relative error at ~amax/254 per block; keys
+    #: and counts are never quantized.  'off' is exactly the stock path.
+    quantize_mode: str = "off"
+    #: Quantization block width (values per scale block along the row), a
+    #: multiple of 4 (int8x4-in-int32 packing granularity).
+    quantize_block_size: int = 128
+    #: Elastic mesh recovery (transport/tpu.py): when an executor dies
+    #: mid-exchange, abort the in-flight round, shrink the mesh to the
+    #: surviving pow2 bucket, restage the dead executor's rounds from its
+    #: ring-successor's replica tier, and re-run the round deterministically
+    #: (bit-identical at replication_factor >= 1).  Default off: loss raises
+    #: a typed ExecutorLostError naming the dead executor (no hang) and
+    #: nothing about membership is tracked or sent on the wire.
+    elastic: bool = False
+    #: How long (ms) a peer wire error must stand before the membership layer
+    #: marks the executor suspect.  0 marks suspect immediately on the first
+    #: addressed wire error (the loopback-test-friendly default behavior when
+    #: elasticity is on).
+    membership_suspect_after_ms: int = 0
+    #: Byte bound on the replicator's pending-push backlog per executor: when
+    #: a stalled ring successor lets un-acked snapshot pushes accumulate past
+    #: this budget, the OLDEST un-pushed snapshot is dropped (drop-oldest-
+    #: unsealed policy; counted in replica_stats["dropped_rounds"]) so memory
+    #: stays bounded.  0 = unbounded (the historical behavior).
+    replication_max_backlog_bytes: int = 0
+    #: Hedged-fetch delay floor (ms): once a fetch window has stragglers
+    #: outstanding past a hedge delay, the reader issues a duplicate request
+    #: for each straggling block to a replica holder; the first completion
+    #: wins bit-identically and the loser's buffer is quarantined.  The actual
+    #: delay is derived from the wire's observed rx stall p99
+    #: (``wire_lane_stats``) clamped to [fetch_hedge_ms, fetch_hedge_max_ms].
+    #: 0 (default) disables hedging entirely — no duplicate requests, reader
+    #: behavior byte-identical to the un-hedged path.
+    fetch_hedge_ms: int = 0
+    #: Hedge delay ceiling (ms): bounds how long the p99-derived hedge delay
+    #: can grow on a wire whose tail is already bad.  0 = unbounded ceiling
+    #: (the floor alone governs).  Ignored while fetch_hedge_ms is 0.
+    fetch_hedge_max_ms: int = 0
+    #: Per-peer circuit breaker: consecutive fetch failures/timeouts that trip
+    #: an executor's breaker from closed to open.  While open, new fetches
+    #: route straight to the replica ring without burning the full deadline
+    #: on the sick primary; after ``breaker_cooldown_ms`` the breaker goes
+    #: half-open and admits ONE probe — success closes it, failure re-opens.
+    #: 0 (default) disables breakers — health EWMAs are still tracked (pure
+    #: local accounting, no wire impact) but routing never changes.
+    breaker_failure_threshold: int = 0
+    #: Cooldown (ms) an open breaker waits before going half-open and
+    #: admitting a probe request to the sick executor.  Only meaningful when
+    #: ``breaker_failure_threshold`` > 0.
+    breaker_cooldown_ms: int = 1000
+
+    # popularity-aware serving tier (hot-block replica fanout + serve cache)
+    #: Per-block fetch-rate promotion threshold (fetches/sec, EWMA —
+    #: store/hbm_store.py ``BlockPopularity``): when a served block's observed
+    #: fetch rate crosses it, the serving executor promotes the block's
+    #: shuffle to HOT — the replicator widens the shuffle's replica set to
+    #: ``serve.hotReplicas`` ring successors (reusing the REPLICA_PUT/
+    #: REPLICA_ACK plane) and advertises the widened holder list through the
+    #: HotSetPull AM so readers spread fetches across every holder instead of
+    #: queueing on the primary.  Cooling below half the threshold demotes the
+    #: advertisement again (hysteresis) — never below the
+    #: ``replication.factor`` fault-tolerance floor.  0 (default) disables
+    #: popularity tracking entirely: no tracker state, no HotSetPull frames,
+    #: wire and store behavior byte-identical to the golden captures.
+    serve_hot_threshold_fetches_per_sec: float = 0.0
+    #: Widened replica-set width for HOT shuffles: how many ring successors a
+    #: hot shuffle is replicated to (total holders = the primary + this many),
+    #: clamped to at least ``replication.factor`` so promotion can only ever
+    #: ADD holders and demotion can only retreat to the fault-tolerance
+    #: floor.  Inert while ``serve.hotThresholdFetchesPerSec`` is 0.
+    serve_hot_replicas: int = 4
+    #: Byte budget for the serve-side decoded-block cache
+    #: (service/eviction.py ``ServeCache``): blocks the popularity tracker
+    #: marks hot are pinned decoded in a byte-budgeted LRU above the eviction
+    #: tiers — charged against the owning tenant's HBM quota — so serving the
+    #: hot set never pays a demotion restage.  0 (default) = no serve cache;
+    #: store serve behavior byte-identical to the golden captures.
+    serve_cache_bytes: int = 0
+    #: Byte cap for the serve-side encoded-chunk pool (transport/peer.py
+    #: BlockServer): sealed chunks pay the encoder once and every later fetch
+    #: serves the cached encoding, evicted least-recently-served (LRU) once
+    #: the held encoded bytes exceed this cap.  Only consulted while
+    #: ``compress.codec`` is on; the default preserves the historical 128 MiB
+    #: pool.
+    compress_cache_bytes: int = 128 << 20
+    #: Freshness TTL (ms) of the reader-side hot-holder advertisement cache:
+    #: ``hot_holders`` answers from its last ``HOT_SET_PULL`` for this long
+    #: before re-pulling, amortizing one round-trip per primary over every
+    #: fetch in between.  Only consulted while
+    #: ``serve.hotThresholdFetchesPerSec`` is on; the default preserves the
+    #: historical hard-coded 250 ms.
+    serve_holders_ttl_ms: int = 250
+
+    # query DAG runner (sparkucx_tpu/query) — cross-query shuffle reuse
+    #: Lineage cache master switch: when on, the QueryRunner keys every
+    #: sealed exchange by its lineage hash (input fingerprint + canonical
+    #: sub-DAG + byte-affecting conf tiers) and keeps the exchanged shuffle
+    #: registered so a repeated sub-DAG serves from the store/eviction/serve
+    #: tiers instead of re-executing.  Off (default) = every exchange runs
+    #: and is unregistered after the query, byte-identical to a cache-less
+    #: runner.
+    query_cache_enabled: bool = False
+    #: Byte budget for lineage-cached shuffles (sum of exchanged payload
+    #: bytes kept resident across queries).  0 = no runner-level cap: cached
+    #: rounds are bounded only by the owning tenant's HBM quota (admission
+    #: still charges the tenant).  Over-budget admissions evict cached
+    #: entries largest-footprint-first, keeping the smallest-footprint
+    #: entries resident (arXiv:2112.01075's cost model applied to the
+    #: keep/recompute decision).
+    query_cache_max_bytes: int = 0
+
+    # staged store (HBM; NVKV analogue).  512 = one exchange row (128 int32
+    # lanes, the native XLA:TPU tile width) and exactly NVKV's sector alignment
+    # (NvkvHandler.scala:244-256).
+    block_alignment: int = 512
+    staging_capacity_per_executor: int = 64 << 20
+    store_port: int = 1338
+    serve_from_store: bool = True  # spark.dpuTest.enabled analogue
+    # (compat/spark_3_0/UcxShuffleBlockResolver.scala:86-90, default true)
+    #: Stage shuffle output in named shared memory so co-located executor
+    #: processes serve blocks zero-copy (single-host NVKV-store analogue).
+    use_shm_staging: bool = False
+    shm_namespace: str = "sparkucx_tpu"
+    #: Disk round tier — the capacity-beyond-RAM role of the reference's
+    #: DPU-attached NVMe (NvkvHandler.scala:160-242).  When a staging round
+    #: rolls over, the completed round is written to an ``np.memmap`` file and
+    #: its RAM is released, so a shuffle larger than host memory streams
+    #: through bounded staging.  ``spill_dir=None`` -> a per-store temp dir.
+    spill_to_disk: bool = True
+    spill_dir: Optional[str] = None
+    #: Total on-disk spill budget per store; 0 = unbounded.  Counts staged
+    #: (padded) bytes — spill files are sparse, holes cost nothing.  Exceeding
+    #: it is a TransportError at rollover (like region overflow), not silent
+    #: data loss.  ``host_recv_mode='memmap'`` received-shard spill is charged
+    #: against the same budget (cluster-wide).
+    spill_disk_cap_bytes: int = 0
+    #: Reduce-side combine/sort memory budget (the ExternalSorter role,
+    #: UcxShuffleReader.scala:137-199): crossing it spills sorted runs to
+    #: ``spill_dir`` and the reader k-way-merges them back.
+    reduce_memory_budget: int = 64 << 20
+    #: Soft memory-pressure watermark (bytes) on the store's resident staged
+    #: footprint (live regions + RAM-tier sealed rounds + replica bytes;
+    #: disk-tier memmap rounds cost nothing): crossing it triggers ONE
+    #: out-of-band EvictionManager sweep (``run_epoch(max_demotions=1)`` —
+    #: demote one tier, smallest-footprint-first per arXiv:2112.01075) on a
+    #: background thread, off the allocating caller's path.  0 (default) =
+    #: no soft watermark, store behavior byte-identical.
+    store_soft_watermark: int = 0
+    #: Hard memory-pressure watermark (bytes): an allocation-bearing write or
+    #: serve (region charge, replica install, restage) that would push the
+    #: resident staged footprint past this bound fails BEFORE any mutation
+    #: with a typed retryable ResourceExhaustedError, carried on the wire as
+    #: the dedicated SIZE_RESOURCE_EXHAUSTED code — clients back off and
+    #: retry instead of the store OOMing.  0 (default) = no hard watermark.
+    store_hard_watermark: int = 0
+
+    # multi-tenant shuffle service (service/ — ROADMAP item 4)
+    #: Multi-tenant mode: shuffles are keyed ``(app_id, shuffle_id)`` through a
+    #: TenantRegistry (service/tenants.py), fetch requests carry the tenant's
+    #: ``app_id`` as a self-describing FETCH_BLOCK_REQ header extension, HBM
+    #: quotas are enforced at region-allocation time, and the serving planes
+    #: run on the shared reactor event loop.  Default off: wire frames and
+    #: store behavior stay byte-identical to the single-tenant build (the
+    #: golden captures the CI wire gate pins).
+    tenants_enabled: bool = False
+    #: Default per-tenant HBM staging quota in bytes, charged at region
+    #: allocation time against the tenant's registered budget; an over-quota
+    #: write raises a typed TenantQuotaExceededError instead of eating a
+    #: neighbor tenant's HBM.  0 = unlimited (admission checks disabled for
+    #: tenants registered without an explicit quota).
+    tenant_hbm_quota_bytes: int = 0
+    #: Tiered-eviction epoch (ms): every epoch the EvictionManager
+    #: (service/eviction.py) demotes the least-recently-fetched sealed rounds
+    #: one tier down (HBM-resident jax.Array -> host snapshot -> np.memmap
+    #: spill), and fetches restage demoted rounds transparently.  0 = no
+    #: background demotion (manual ``run_epoch()`` only).
+    eviction_epoch_ms: int = 0
+    #: Serving-plane worker pool size for the shared selectors-based reactor
+    #: (service/reactor.py) that replaces thread-per-connection accept loops
+    #: in shuffle/daemon.py and the transport/peer.py block server.  0 keeps
+    #: the historical thread-per-connection serving plane (tenants.enabled
+    #: implies a reactor with a default-sized pool when left at 0).
+    server_workers: int = 0
+    #: Bounded accept backlog for the reactor serving plane: when the reactor
+    #: already holds this many resident connections, a new accept is SHED —
+    #: the server sends one best-effort SERVER_BUSY frame (AM id 13) and
+    #: closes, instead of queuing work unboundedly.  Clients treat the busy
+    #: reply as a retryable ResourceExhaustedError (back off, retry/fail
+    #: over).  0 (default) = unbounded accepts, the historical behavior.
+    #: Only applies when the reactor serving plane is active (server_workers
+    #: > 0 or tenants_enabled).
+    server_accept_backlog: int = 0
+
+    # TPU mesh (L2)
+    mesh_axis_name: str = "ex"
+    num_executors: int = 1
+    #: Multi-slice factorization: when > 1, the cluster's exchange routes in
+    #: two phases (ICI aggregate within a slice, ONE DCN crossing between
+    #: slices — ops/hierarchy.py).  Executors are slice-major:
+    #: executor = slice * (num_executors // num_slices) + chip.
+    num_slices: int = 1
+
+    #: Keep each executor's received exchange shard resident in HBM after the
+    #: superstep, enabling device-side block fetch (ops/pallas_kernels.py) —
+    #: the serving analogue of the reference's registered bounce buffers that
+    #: never leave the NIC-visible pool (MemoryPool.scala).  Costs one extra
+    #: device-resident copy of the received bytes per round, doubling the HBM
+    #: envelope of received bytes — opt-in (default off) so large multi-round
+    #: shuffles keep the donation that halves peak HBM.
+    keep_device_recv: bool = False
+    #: Where the post-exchange received shards live on the HOST (SURVEY §7's
+    #: "HBM budget" hard-part, host half).  ``'array'`` keeps one RAM copy per
+    #: round (fastest fetches; ~1x received bytes of host RSS on top of the
+    #: store's staging).  ``'memmap'`` writes each round's shards to disk
+    #: (``spill_dir``) and serves fetches through ``np.memmap`` views — host
+    #: RSS stays bounded by one round regardless of round count, the page
+    #: cache does the rest.  ``'device'`` keeps NO host copy at all: fetches
+    #: slice the HBM-resident shard and D2H only the requested block
+    #: (requires ``keep_device_recv``) — the reference's serve-from-NVKV
+    #: mode, where host memory never holds the shuffle.  The SPMD
+    #: multi-controller executor honors 'array'/'memmap' per host ('device'
+    #: raises there: it releases device shards after the collective).
+    host_recv_mode: str = "array"
+    #: Ragged block-gather lowering: 'auto' (pipelined DMA kernel on TPU, XLA
+    #: gather elsewhere) | 'dma' | 'tiled' | 'xla'.
+    gather_impl: str = "auto"
+    #: Inter-chip exchange implementation (ops/ici_exchange.py): 'stock'
+    #: (default — the byte-for-byte ragged_all_to_all/dense collective path),
+    #: 'pallas' (hand-rolled bidirectional-ring supersteps with FAST-style
+    #: per-destination chunk interleaving: remote-DMA kernel on TPU, scheduled
+    #: ppermute lowering elsewhere — bit-identical results, pinned by
+    #: tests/test_ici_exchange.py), or 'auto' (pallas on multi-chip TPU
+    #: meshes, stock everywhere else).
+    exchange_impl: str = "stock"
+    #: Receive-side compute-in-exchange for partial grouped aggregations
+    #: (ops/combine.py + ops/relational.py): fold each landed exchange window
+    #: into a fixed per-group accumulator inside the collective instead of
+    #: staging it — O(groups) post-exchange memory and drain bytes instead of
+    #: O(rows), and one fused kernel launch under the Pallas DMA lowering.
+    #: Default off = the unfused path, byte-identical to every prior release.
+    #: The planner picks the tier ('dense' when the key domain is
+    #: dense-representable and the accumulator undercuts recv staging,
+    #: 'sorted' bounded merge otherwise); raw block exchanges ignore the knob.
+    exchange_fused_combine: bool = False
+    #: Map-side partial aggregation below the exchange for GROUP BY jobs —
+    #: Spark's HashAggregateExec(partial) under the ShuffleExchange, on by
+    #: default exactly as in Spark.  Consumed by ``AggregateSpec.from_conf``
+    #: (ops/relational.py), which defaults ``AggregateSpec.partial`` to this
+    #: value; specs built directly ignore the conf.  Shrinks exchange traffic
+    #: by the group-reduction factor and bounds hot-key skew to one partial
+    #: row per (sender, key); disable to force the raw-row exchange
+    #: (count_distinct plans do so automatically — partials don't compose).
+    partial_aggregation: bool = True
+
+    #: Device-resident map-output staging (store/hbm_store.py device rounds +
+    #: ops/pallas_kernels.build_block_scatter): device-born map output is
+    #: written as ``(rows, lane)`` int32 device arrays and placed into the
+    #: HBM staging array by the block-scatter kernel, so seal returns the
+    #: exchange payload with zero D2H -> host memcpy -> H2D round trip.
+    #: Gates ``write_partition_device`` / ``DeviceMapWriter``
+    #: (shuffle/writer.py).  Default off: the host byte path stays the
+    #: reference-faithful default.
+    device_staging: bool = False
+
+    #: Superstep pipelining across spill rounds: how many rounds may be in
+    #: flight at once in the multi-round exchange (transport/tpu.py /
+    #: transport/spmd.py).  At depth d, round k's collective overlaps round
+    #: k+1's host assembly + H2D staging and round k-1's D2H drain, at the
+    #: cost of (d-1) extra in-flight receive buffers of HBM/RAM.  1 = the
+    #: strictly serial engine (bit-identical results either way; the pipeline
+    #: only reorders WHEN stages run, never what they compute).
+    pipeline_depth: int = 2
+
+    #: Skew-aware exchange planning (ops/skew.py): cap each destination's
+    #: exchange slot at this many rows and chunk hotter lanes across extra
+    #: pipelined sub-rounds instead of inflating every slot to the global max
+    #: — the extra rounds ride the pipeline_depth overlap, so hot-lane bytes
+    #: stream while cold lanes finish.  Shrinks staged HBM and (under the
+    #: portable dense lowering) wire bytes on Zipf-skewed shuffles; results
+    #: are bit-identical to the single-shot exchange.  0 (default) disables
+    #: the planner entirely — the unchunked path runs byte-for-byte as before.
+    slot_quota_rows: int = 0
+
+    #: Exchange planner selection (ops/planner.py).  'static' (default) maps
+    #: the legacy knobs 1:1 onto an ExchangePlan — byte-identical outputs and
+    #: wire frames.  'adaptive' re-plans per shuffle per epoch from the
+    #: telemetry plane: quota/chunking from the sealed size matrices, hedge
+    #: delay from rx stall tails + peer health, codec from observed
+    #: compression ratios, streams from credit stalls, depth from drain-lane
+    #: occupancy.  Results stay bit-identical either way — plans only change
+    #: the schedule, never the bytes.
+    planner_mode: str = "static"
+    #: Run the plan-optimization passes (pow2 slot bucketing, chunk
+    #: coalescing, staging-footprint sub-round reordering per
+    #: arXiv:2112.01075) over static plans.  Off (default) keeps the legacy
+    #: schedule verbatim; adaptive plans always optimize.
+    planner_optimize: bool = False
+    #: Adaptive planner only: when the single-shot plan's predicted staging
+    #: padding fraction (from the sealed size matrices) exceeds this, switch
+    #: to a quota-chunked plan sized near the mean lane.
+    planner_target_padding: float = 0.5
+    #: Adaptive planner only: floor for a telemetry-derived slot quota, so
+    #: extreme skew cannot chunk a shuffle into thousands of tiny sub-rounds.
+    planner_min_quota_rows: int = 256
+
+    # instrumentation
+    collect_stats: bool = True
+
+    #: Distributed-trace context propagation (obs plane): when on, fetch
+    #: requests and replica pushes carry the issuing span's (trace_id,
+    #: span_id) as a self-describing trailing header extension
+    #: (core/definitions.py ``_TRACE_EXT`` / ``_REPLICA_TRACE_EXT``), so
+    #: server-side serve/read/restage spans parent under the reducer's fetch
+    #: span in the merged Perfetto view (TpuShuffleCluster.export_trace).
+    #: Default off: every golden wire frame stays byte-identical.
+    obs_trace_context: bool = False
+    #: Local Prometheus scrape endpoint port (obs/metrics.py
+    #: ``start_http_server``): GET /metrics serves this executor's
+    #: MetricsRegistry text exposition.  0 (default) = no HTTP server; the
+    #: peer-plane METRICS_PULL Active Message works regardless.
+    obs_metrics_port: int = 0
+    #: Flight-recorder ring capacity (utils/trace.py): the bounded
+    #: drop-oldest event ring that backs both full tracing and the always-on
+    #: postmortem recorder.  Oldest events are evicted (and counted) once the
+    #: ring is full, so long-running tracing can't OOM an executor.
+    obs_ring_capacity: int = 8192
+    #: Postmortem bundle directory (obs/recorder.py): when set, every
+    #: flight-recorder capture (TransportError, elastic recovery, chaos
+    #: fault) is additionally written as a JSON file here.  Empty (default) =
+    #: in-memory only (``FlightRecorder.last_postmortem``) — no file writes.
+    obs_postmortem_dir: str = ""
+    #: Runtime buffer sanitizer (memory/sanitizer.py): track pooled-handle
+    #: lifecycles, poison freed host buffers with 0xDD, and RAISE on
+    #: double-release / use-after-release / re-pooling a buffer with live
+    #: exported views.  Debug tool — default off; in normal mode release
+    #: stays idempotent (see MemoryBlock.close / BlockFetchResult.release).
+    sanitize: bool = False
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_spark_conf(cls, conf: Mapping[str, str]) -> "TpuShuffleConf":
+        """Build from a flat spark-style key/value map.
+
+        Recognized keys: ``spark.shuffle.tpu.memory.preAllocateBuffers`` (a
+        ``size:count,size:count`` list — UcxShuffleConf.scala:21-31 format),
+        ``...memory.minBufferSize``, ``...memory.minAllocationSize``,
+        ``...listener.sockaddr``, ``...useWakeup``, ``...numIoThreads``,
+        ``...numListenerThreads``, ``...numClientWorkers``,
+        ``...maxBlocksPerRequest``, ``...blockAlignment``, ``...stagingCapacity``,
+        ``...storePort``, ``...serveFromStore``, ``...numExecutors``.
+        """
+        p = CONF_PREFIX
+
+        def get(key: str, default=None):
+            return conf.get(f"{p}.{key}", default)
+
+        out = cls()
+        pre = get("memory.preAllocateBuffers")
+        if pre:
+            buffers: Dict[int, int] = {}
+            for item in str(pre).split(","):
+                if not item.strip():
+                    continue
+                size_s, count_s = item.split(":")
+                buffers[parse_size(size_s)] = int(count_s)
+            out.prealloc_buffers = buffers
+        if get("memory.minBufferSize") is not None:
+            out.min_buffer_size = parse_size(get("memory.minBufferSize"))
+        if get("memory.minAllocationSize") is not None:
+            out.min_allocation_size = parse_size(get("memory.minAllocationSize"))
+        sock = get("listener.sockaddr")
+        if sock:
+            host, _, port = str(sock).rpartition(":")
+            out.listener_address = (host or "0.0.0.0", int(port))
+        for name, attr, conv in [
+            ("useWakeup", "use_wakeup", lambda v: str(v).lower() == "true"),
+            ("numIoThreads", "num_io_threads", int),
+            ("numListenerThreads", "num_listener_threads", int),
+            ("numClientWorkers", "num_client_workers", int),
+            ("maxBlocksPerRequest", "max_blocks_per_request", int),
+            ("fetchRetries", "fetch_retries", int),
+            ("wire.streams", "wire_streams", int),
+            ("wire.chunkBytes", "wire_chunk_bytes", parse_size),
+            ("wire.creditBytes", "wire_credit_bytes", parse_size),
+            ("wire.sockBufBytes", "wire_sock_buf_bytes", parse_size),
+            ("wire.timeoutMs", "wire_timeout_ms", int),
+            ("replication.factor", "replication_factor", int),
+            ("replication.maxBacklogBytes", "replication_max_backlog_bytes", parse_size),
+            ("fetch.deadlineMs", "fetch_deadline_ms", int),
+            ("fetch.backoffMs", "fetch_backoff_ms", int),
+            ("fetch.hedgeMs", "fetch_hedge_ms", int),
+            ("fetch.hedgeMaxMs", "fetch_hedge_max_ms", int),
+            ("breaker.failureThreshold", "breaker_failure_threshold", int),
+            ("breaker.cooldownMs", "breaker_cooldown_ms", int),
+            ("serve.hotThresholdFetchesPerSec", "serve_hot_threshold_fetches_per_sec", float),
+            ("serve.hotReplicas", "serve_hot_replicas", int),
+            ("serve.cacheBytes", "serve_cache_bytes", parse_size),
+            ("serve.holdersTtlMs", "serve_holders_ttl_ms", int),
+            ("compress.cacheBytes", "compress_cache_bytes", parse_size),
+            ("query.cacheEnabled", "query_cache_enabled", lambda v: str(v).lower() == "true"),
+            ("query.cacheMaxBytes", "query_cache_max_bytes", parse_size),
+            ("store.softWatermark", "store_soft_watermark", parse_size),
+            ("store.hardWatermark", "store_hard_watermark", parse_size),
+            ("server.acceptBacklog", "server_accept_backlog", int),
+            ("wire.checksum", "wire_checksum", lambda v: str(v).lower() == "true"),
+            ("compress.codec", "wire_compress_codec", str),
+            ("compress.minChunkBytes", "compress_min_chunk_bytes", parse_size),
+            ("quantize.mode", "quantize_mode", str),
+            ("quantize.blockSize", "quantize_block_size", int),
+            ("elastic.enabled", "elastic", lambda v: str(v).lower() == "true"),
+            ("membership.suspectAfterMs", "membership_suspect_after_ms", int),
+            ("blockAlignment", "block_alignment", parse_size),
+            ("stagingCapacity", "staging_capacity_per_executor", parse_size),
+            ("storePort", "store_port", int),
+            ("serveFromStore", "serve_from_store", lambda v: str(v).lower() == "true"),
+            ("useShmStaging", "use_shm_staging", lambda v: str(v).lower() == "true"),
+            ("shmNamespace", "shm_namespace", str),
+            ("numExecutors", "num_executors", int),
+            ("numSlices", "num_slices", int),
+            ("meshAxisName", "mesh_axis_name", str),
+            ("keepDeviceRecv", "keep_device_recv", lambda v: str(v).lower() == "true"),
+            ("gatherImpl", "gather_impl", str),
+            ("exchange.impl", "exchange_impl", str),
+            ("exchange.fusedCombine", "exchange_fused_combine", lambda v: str(v).lower() == "true"),
+            ("partialAggregation", "partial_aggregation", lambda v: str(v).lower() == "true"),
+            ("hostRecvMode", "host_recv_mode", str),
+            ("spillToDisk", "spill_to_disk", lambda v: str(v).lower() == "true"),
+            ("spillDir", "spill_dir", str),
+            ("spillDiskCap", "spill_disk_cap_bytes", parse_size),
+            ("reduceMemoryBudget", "reduce_memory_budget", parse_size),
+            ("tenants.enabled", "tenants_enabled", lambda v: str(v).lower() == "true"),
+            ("tenants.hbmQuotaBytes", "tenant_hbm_quota_bytes", parse_size),
+            ("eviction.epochMs", "eviction_epoch_ms", int),
+            ("server.workers", "server_workers", int),
+            ("pipelineDepth", "pipeline_depth", int),
+            ("slotQuotaRows", "slot_quota_rows", int),
+            ("planner.mode", "planner_mode", str),
+            ("planner.optimize", "planner_optimize", lambda v: str(v).lower() == "true"),
+            ("planner.targetPaddingFraction", "planner_target_padding", float),
+            ("planner.minQuotaRows", "planner_min_quota_rows", int),
+            ("deviceStaging", "device_staging", lambda v: str(v).lower() == "true"),
+            ("sanitize", "sanitize", lambda v: str(v).lower() == "true"),
+            ("obs.traceContext", "obs_trace_context", lambda v: str(v).lower() == "true"),
+            ("obs.metricsPort", "obs_metrics_port", int),
+            ("obs.ringCapacity", "obs_ring_capacity", int),
+            ("obs.postmortemDir", "obs_postmortem_dir", str),
+        ]:
+            v = get(name)
+            if v is not None:
+                setattr(out, attr, conv(v))
+        # spark.executor.cores fallback for worker count (UcxShuffleConf.scala:80-86)
+        if get("numClientWorkers") is None and "spark.executor.cores" in conf:
+            out.num_client_workers = int(conf["spark.executor.cores"])
+        out.validate()
+        return out
+
+    def validate(self) -> None:
+        if self.block_alignment <= 0 or (self.block_alignment & (self.block_alignment - 1)):
+            raise ValueError("block_alignment must be a positive power of two")
+        if self.block_alignment % 4:
+            raise ValueError("block_alignment must be a multiple of 4 (int32 exchange lanes)")
+        if self.min_buffer_size <= 0:
+            raise ValueError("min_buffer_size must be positive")
+        if self.max_blocks_per_request <= 0:
+            raise ValueError("max_blocks_per_request must be positive")
+        if self.num_executors <= 0:
+            raise ValueError("num_executors must be positive")
+        if self.gather_impl not in ("auto", "dma", "tiled", "xla"):
+            raise ValueError(f"unknown gather_impl {self.gather_impl!r}")
+        if self.exchange_impl not in ("stock", "pallas", "auto"):
+            raise ValueError(f"unknown exchange_impl {self.exchange_impl!r}")
+        if self.num_slices <= 0:
+            raise ValueError("num_slices must be positive")
+        if self.num_slices > 1 and self.num_executors % self.num_slices:
+            raise ValueError("num_executors must be divisible by num_slices")
+        if self.pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1 (1 = serial engine)")
+        if self.slot_quota_rows < 0:
+            raise ValueError("slot_quota_rows must be >= 0 (0 = no quota)")
+        if self.planner_mode not in ("static", "adaptive"):
+            raise ValueError(f"unknown planner_mode {self.planner_mode!r}")
+        if not (0 <= self.planner_target_padding < 1):
+            raise ValueError("planner_target_padding must be in [0, 1)")
+        if self.planner_min_quota_rows < 1:
+            raise ValueError("planner_min_quota_rows must be >= 1")
+        if self.wire_streams < 1:
+            raise ValueError("wire_streams must be >= 1 (1 = single-lane wire)")
+        if self.wire_chunk_bytes < 4096:
+            raise ValueError("wire_chunk_bytes must be >= 4096")
+        if self.wire_credit_bytes < 0:
+            raise ValueError("wire_credit_bytes must be >= 0 (0 = no pipelining)")
+        if self.wire_sock_buf_bytes < 0:
+            raise ValueError("wire_sock_buf_bytes must be >= 0 (0 = platform default)")
+        if self.wire_timeout_ms < 0:
+            raise ValueError("wire_timeout_ms must be >= 0 (0 = no timeout)")
+        if self.replication_factor < 0:
+            raise ValueError("replication_factor must be >= 0 (0 = replication off)")
+        if self.fetch_deadline_ms < 0:
+            raise ValueError("fetch_deadline_ms must be >= 0 (0 = no deadline)")
+        if self.fetch_backoff_ms < 0:
+            raise ValueError("fetch_backoff_ms must be >= 0")
+        if self.membership_suspect_after_ms < 0:
+            raise ValueError("membership_suspect_after_ms must be >= 0")
+        if self.replication_max_backlog_bytes < 0:
+            raise ValueError("replication_max_backlog_bytes must be >= 0 (0 = unbounded)")
+        if self.wire_compress_codec not in ("off", "dict", "rle", "delta"):
+            raise ValueError(f"unknown wire_compress_codec {self.wire_compress_codec!r}")
+        if self.compress_min_chunk_bytes < 0:
+            raise ValueError("compress_min_chunk_bytes must be >= 0")
+        if self.quantize_mode not in ("off", "int8", "blockfloat"):
+            raise ValueError(f"unknown quantize_mode {self.quantize_mode!r}")
+        if self.quantize_block_size <= 0 or self.quantize_block_size % 4:
+            raise ValueError("quantize_block_size must be a positive multiple of 4")
+        if self.tenant_hbm_quota_bytes < 0:
+            raise ValueError("tenant_hbm_quota_bytes must be >= 0 (0 = unlimited)")
+        if self.eviction_epoch_ms < 0:
+            raise ValueError("eviction_epoch_ms must be >= 0 (0 = manual epochs)")
+        if self.server_workers < 0:
+            raise ValueError("server_workers must be >= 0 (0 = thread-per-connection)")
+        if self.fetch_hedge_ms < 0:
+            raise ValueError("fetch_hedge_ms must be >= 0 (0 = hedging off)")
+        if self.fetch_hedge_max_ms < 0:
+            raise ValueError("fetch_hedge_max_ms must be >= 0 (0 = unbounded ceiling)")
+        if self.fetch_hedge_max_ms and self.fetch_hedge_max_ms < self.fetch_hedge_ms:
+            raise ValueError("fetch_hedge_max_ms must be >= fetch_hedge_ms when set")
+        if self.breaker_failure_threshold < 0:
+            raise ValueError("breaker_failure_threshold must be >= 0 (0 = breakers off)")
+        if self.breaker_cooldown_ms < 0:
+            raise ValueError("breaker_cooldown_ms must be >= 0")
+        if self.serve_hot_threshold_fetches_per_sec < 0:
+            raise ValueError(
+                "serve_hot_threshold_fetches_per_sec must be >= 0 (0 = popularity tracking off)"
+            )
+        if self.serve_hot_replicas < 0:
+            raise ValueError("serve_hot_replicas must be >= 0")
+        if self.serve_cache_bytes < 0:
+            raise ValueError("serve_cache_bytes must be >= 0 (0 = no serve-side cache)")
+        if self.compress_cache_bytes < 0:
+            raise ValueError("compress_cache_bytes must be >= 0 (0 = no encoded-chunk pool)")
+        if self.serve_holders_ttl_ms < 0:
+            raise ValueError(
+                "serve_holders_ttl_ms must be >= 0 (0 = re-pull the holder set every fetch)"
+            )
+        if self.query_cache_max_bytes < 0:
+            raise ValueError("query_cache_max_bytes must be >= 0 (0 = tenant quotas only)")
+        if self.store_soft_watermark < 0:
+            raise ValueError("store_soft_watermark must be >= 0 (0 = no soft watermark)")
+        if self.store_hard_watermark < 0:
+            raise ValueError("store_hard_watermark must be >= 0 (0 = no hard watermark)")
+        if (
+            self.store_soft_watermark
+            and self.store_hard_watermark
+            and self.store_soft_watermark > self.store_hard_watermark
+        ):
+            raise ValueError("store_soft_watermark must be <= store_hard_watermark")
+        if self.server_accept_backlog < 0:
+            raise ValueError("server_accept_backlog must be >= 0 (0 = unbounded accepts)")
+        if not (0 <= self.obs_metrics_port <= 65535):
+            raise ValueError("obs_metrics_port must be in [0, 65535] (0 = no HTTP endpoint)")
+        if self.obs_ring_capacity <= 0:
+            raise ValueError("obs_ring_capacity must be positive (the ring is always bounded)")
+
+    def replace(self, **kw) -> "TpuShuffleConf":
+        out = dataclasses.replace(self, **kw)
+        out.validate()
+        return out

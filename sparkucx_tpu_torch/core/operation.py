@@ -1,0 +1,297 @@
+"""Async-operation contracts: status, stats, results, requests.
+
+Port of ``sparkucx_tpu/core/operation.py`` (a verbatim copy).
+
+Counterpart of ShuffleTransport.scala:56-93 (``OperationStatus``, ``OperationStats``,
+``OperationCallback``, ``OperationResult``, ``Request``) and of the concrete
+``UcxStats``/``UcxRequest`` (UcxShuffleTransport.scala:23-53).
+
+The reference's explicit ``progress()`` polling contract
+(ShuffleTransport.scala:158-165) maps onto a poll hook: ``completed()`` runs the
+attached non-blocking poll, and ``wait()`` spins on it — so the reduce-side spin
+loop (UcxShuffleReader.scala:116-134) has a faithful, non-blocking analogue.
+"""
+
+from __future__ import annotations
+
+import enum
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence
+
+from sparkucx_tpu_torch.core.block import MemoryBlock
+
+
+class OperationStatus(enum.Enum):
+    """ShuffleTransport.scala:56-58."""
+
+    SUCCESS = "SUCCESS"
+    CANCELED = "CANCELED"
+    FAILURE = "FAILURE"
+
+
+#: Observer callbacks fired when any TransportError (or subclass) is
+#: constructed — the flight recorder (obs/recorder.py) registers here to
+#: capture a postmortem bundle at the instant a transport-level failure is
+#: born, before the catch-site decides whether it is retryable.  Lives in
+#: this leaf module so obs can hook transports without an import cycle.
+_failure_hooks: List[Callable[["TransportError"], None]] = []
+
+
+def register_failure_hook(hook: Callable[["TransportError"], None]) -> None:
+    if hook not in _failure_hooks:
+        _failure_hooks.append(hook)
+
+
+def unregister_failure_hook(hook: Callable[["TransportError"], None]) -> None:
+    try:
+        _failure_hooks.remove(hook)
+    except ValueError:
+        pass
+
+
+class TransportError(RuntimeError):
+    """ShuffleTransport.scala:60-62 (``TransportError`` wraps an error message)."""
+
+    def __init__(self, *args) -> None:
+        super().__init__(*args)
+        for hook in list(_failure_hooks):
+            try:
+                hook(self)
+            except Exception:
+                pass  # observability must never turn a failure into two
+
+
+class BlockNotFoundError(TransportError):
+    """A fetch named a block the serving executor does not hold.
+
+    Subclasses TransportError so existing catch-sites keep working, but is
+    typed + addressed so the reducer can tell "retryable: not yet committed /
+    primary lost, try a replica" apart from programming errors (bad ids).
+    """
+
+    def __init__(self, shuffle_id: int, map_id: int, reduce_id: int, detail: str = "") -> None:
+        self.shuffle_id = shuffle_id
+        self.map_id = map_id
+        self.reduce_id = reduce_id
+        msg = f"no block (shuffle={shuffle_id}, map={map_id}, reduce={reduce_id}) found"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class BlockCorruptError(TransportError):
+    """A block's wire payload failed its integrity check (wire.checksum).
+
+    Typed + addressed like BlockNotFoundError so the reducer's failover path
+    can treat "bytes arrived but are wrong" exactly like "peer died": retry
+    against the next candidate executor instead of propagating garbage.
+    """
+
+    def __init__(self, shuffle_id: int, map_id: int, reduce_id: int, detail: str = "") -> None:
+        self.shuffle_id = shuffle_id
+        self.map_id = map_id
+        self.reduce_id = reduce_id
+        msg = f"block (shuffle={shuffle_id}, map={map_id}, reduce={reduce_id}) failed checksum"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class UnknownTenantError(TransportError):
+    """A multi-tenant operation named an ``app_id`` the serving executor's
+    TenantRegistry does not know (never registered, or already unregistered).
+
+    Typed + addressed like BlockNotFoundError — but NOT retryable: an unknown
+    tenant stays unknown no matter which replica a reducer fails over to, so
+    the reader propagates it immediately instead of burning the retry budget.
+    """
+
+    def __init__(self, app_id: str, detail: str = "") -> None:
+        self.app_id = app_id
+        msg = f"unknown tenant app_id={app_id!r}"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class TenantQuotaExceededError(TransportError):
+    """A tenant's HBM byte quota would be exceeded by an admission-checked
+    allocation (map-output region allocation, or restaging a demoted round).
+
+    Typed + addressed — names the tenant, the shuffle, and the budget
+    arithmetic — and, like UnknownTenantError, NOT retryable over the wire:
+    every replica enforces the same registry budget, so reducers fail fast
+    instead of retrying a quota rejection through the failover path.
+    """
+
+    def __init__(
+        self,
+        app_id: str,
+        shuffle_id: int,
+        requested: int = 0,
+        quota: int = 0,
+        used: int = 0,
+        detail: str = "",
+    ) -> None:
+        self.app_id = app_id
+        self.shuffle_id = shuffle_id
+        self.requested = requested
+        self.quota = quota
+        self.used = used
+        msg = (
+            f"tenant {app_id!r} over HBM quota on shuffle {shuffle_id}"
+            f" (requested={requested}, used={used}, quota={quota})"
+        )
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class ResourceExhaustedError(TransportError):
+    """The serving executor is under memory pressure: an allocation-bearing
+    write/serve hit the store's hard watermark (``store.hardWatermark``), the
+    host buffer pool's cap, or the reactor shed the connection past its accept
+    backlog (``server.acceptBacklog``).
+
+    Typed + addressed like TenantQuotaExceededError — but RETRYABLE WITH
+    BACKOFF, the third arm of the failure taxonomy: unlike a quota rejection
+    (every replica enforces the same registry, fail fast) memory pressure is a
+    transient, per-executor condition — the soft-watermark eviction sweep or a
+    drained backlog clears it — so clients back off and retry the same or a
+    replica holder instead of failing the job.  Carried on the wire as the
+    dedicated ``SIZE_RESOURCE_EXHAUSTED`` fetch-reply size code.
+    """
+
+    def __init__(
+        self,
+        requested: int = 0,
+        used: int = 0,
+        watermark: int = 0,
+        detail: str = "",
+    ) -> None:
+        self.requested = requested
+        self.used = used
+        self.watermark = watermark
+        msg = (
+            "resource exhausted under memory pressure"
+            f" (requested={requested}, used={used}, watermark={watermark})"
+        )
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+class ExecutorLostError(TransportError):
+    """An executor died while an exchange depended on it and no recovery path
+    exists (elasticity off, replication factor 0, or an unsupported exchange
+    configuration).  Typed + addressed — names the lost executor and the
+    membership epoch — so drivers can tell "re-run after repair" apart from
+    programming errors, and so the no-hang guarantee is testable.
+    """
+
+    def __init__(self, executor_id: int, epoch: int = 0, detail: str = "") -> None:
+        self.executor_id = executor_id
+        self.epoch = epoch
+        msg = f"executor {executor_id} lost (membership epoch {epoch})"
+        if detail:
+            msg += f": {detail}"
+        super().__init__(msg)
+
+
+@dataclass
+class OperationStats:
+    """Per-operation timing/size stats (ShuffleTransport.scala:64-69).
+
+    Concrete semantics follow ``UcxStats`` (UcxShuffleTransport.scala:36-53):
+    ``start_time_ns`` at submit, ``end_time_ns`` at callback, ``recv_size`` bytes
+    received, plus the fork's AM-handle timestamps.
+    """
+
+    start_time_ns: int = field(default_factory=time.monotonic_ns)
+    end_time_ns: Optional[int] = None
+    am_handle_start_ns: Optional[int] = None
+    am_handle_end_ns: Optional[int] = None
+    recv_size: int = 0
+
+    def elapsed_ns(self) -> int:
+        end = self.end_time_ns if self.end_time_ns is not None else time.monotonic_ns()
+        return end - self.start_time_ns
+
+    def mark_done(self, recv_size: int = 0) -> None:
+        self.end_time_ns = time.monotonic_ns()
+        self.recv_size += recv_size
+
+
+@dataclass
+class OperationResult:
+    """ShuffleTransport.scala:77-81: status + error + stats + resulting data."""
+
+    status: OperationStatus
+    error: Optional[TransportError] = None
+    stats: Optional[OperationStats] = None
+    data: Optional[MemoryBlock] = None
+
+
+#: ShuffleTransport.scala:71-75 — callback invoked on operation completion.
+OperationCallback = Callable[[OperationResult], None]
+
+
+class Request:
+    """Handle for an async transport operation (ShuffleTransport.scala:83-93).
+
+    ``completed()`` never blocks: it runs the attached poll and returns whether
+    the whole operation finished.  ``progress()`` on the owning transport drives completion.
+    """
+
+    def __init__(self, stats: Optional[OperationStats] = None) -> None:
+        self._done = threading.Event()
+        self._cancelled = False
+        self.stats = stats or OperationStats()
+        self.result: Optional[OperationResult] = None
+        self._poll: Optional[Callable[[], bool]] = None
+
+    def attach_poll(self, poll: Callable[[], bool]) -> None:
+        """Install a non-blocking poll that returns True once the op finished."""
+        self._poll = poll
+
+    def complete(self, result: OperationResult) -> None:
+        self.result = result
+        if result.stats is None:
+            result.stats = self.stats
+        self._done.set()
+
+    def cancel(self) -> None:
+        self._cancelled = True
+        self.complete(OperationResult(OperationStatus.CANCELED, stats=self.stats))
+
+    def is_cancelled(self) -> bool:
+        return self._cancelled
+
+    def completed(self) -> bool:
+        if self._done.is_set():
+            return True
+        if self._poll is not None and self._poll():
+            return self._done.is_set()
+        return self._done.is_set()
+
+    def wait(self, timeout: Optional[float] = None) -> OperationResult:
+        deadline = None if timeout is None else time.monotonic() + timeout
+        # Spin via the poll hook (the reference's while(!done) progress() loop,
+        # UcxShuffleClient.scala:44-46) but yield the GIL between polls.
+        while not self._done.is_set():
+            if self._poll is not None:
+                self._poll()
+            if self._done.wait(timeout=0.0005):
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError("Request.wait timed out")
+        assert self.result is not None
+        return self.result
+
+
+def wait_all(requests: Sequence[Request], timeout: Optional[float] = None) -> List[OperationResult]:
+    """Wait for a batch of requests (the benchmark's outstanding-window join,
+    UcxPerfBenchmark.scala:129-151)."""
+    return [r.wait(timeout) for r in requests]

@@ -1,0 +1,180 @@
+"""Map-side output writer (L4) — the Spark ``ShuffleMapOutputWriter`` SPI shape.
+
+Port of ``sparkucx_tpu/shuffle/writer.py``; device partitions are tensors.
+
+Counterpart of ``NvkvShuffleMapOutputWriter`` (+ inner ``NvkvShufflePartitionWriter``
+/ ``PartitionWriterStream``, NvkvShuffleMapOutputWriter.scala, 274 LoC): one writer
+per map task, partitions opened in increasing order (:108), stream writes delegated
+to the staged store at a running offset (:228-234), ``close`` records
+(offset, length) + padding (:236-246), and ``commit_all_partitions`` packs the
+MapperInfo commit blob and ships it through the transport (:116-148, AM id 2).
+
+Differences by design: space is accounted dynamically by the store (no static
+``shuffleId*shuffleBlockSize`` carve-up, :94-103) and the commit also returns the
+partition-lengths array Spark's scheduler expects (``MapOutputCommitMessage``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from sparkucx_tpu_torch.core.operation import TransportError
+from sparkucx_tpu_torch.core.transport import ShuffleTransport
+from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore, MapWriter
+
+
+class PartitionWriterStream:
+    """File-like stream for one reduce partition
+    (``PartitionWriterStream``, NvkvShuffleMapOutputWriter.scala:151-226)."""
+
+    def __init__(self, owner: "TpuShuffleMapOutputWriter", reduce_id: int) -> None:
+        self._owner = owner
+        self.reduce_id = reduce_id
+        self.count = 0
+        self._closed = False
+
+    def write(self, data: bytes) -> int:
+        if self._closed:
+            raise TransportError("write to closed partition stream")
+        self._owner.map_writer.write(data)
+        self.count += len(data)
+        return len(data)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._owner.map_writer.close_partition()
+        self._owner.record_partition_length(self.reduce_id, self.count)
+
+    def __enter__(self) -> "PartitionWriterStream":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class TpuShufflePartitionWriter:
+    """Per-partition writer handle (``NvkvShufflePartitionWriter``,
+    NvkvShuffleMapOutputWriter.scala:150-175)."""
+
+    def __init__(self, owner: "TpuShuffleMapOutputWriter", reduce_id: int) -> None:
+        self._owner = owner
+        self.reduce_id = reduce_id
+        self._stream: Optional[PartitionWriterStream] = None
+
+    def open_stream(self) -> PartitionWriterStream:
+        if self._stream is None:
+            self._owner.map_writer.open_partition(self.reduce_id)
+            self._stream = PartitionWriterStream(self._owner, self.reduce_id)
+        return self._stream
+
+    def get_num_bytes_written(self) -> int:
+        return self._stream.count if self._stream is not None else 0
+
+
+class DeviceMapWriter:
+    """Device-resident per-map writer (conf.device_staging): partitions arrive
+    as ``(rows, lane)`` int32 tensors and never visit host memory — the
+    block-scatter kernel places the whole round into device staging at seal
+    (store/hbm_store.py ``MapWriter.write_partition_device``).  Same sequential
+    protocol and first-commit-wins retry semantics as the host ``MapWriter``;
+    this wrapper is the writer-layer surface that enforces the conf gate."""
+
+    def __init__(self, store: HbmBlockStore, shuffle_id: int, map_id: int) -> None:
+        if not store.conf.device_staging:
+            raise TransportError(
+                "device staging disabled — set spark.shuffle.tpu.deviceStaging=true"
+            )
+        self.shuffle_id = shuffle_id
+        self.map_id = map_id
+        self.map_writer: MapWriter = store.map_writer(shuffle_id, map_id)
+
+    def write_partition(self, reduce_id: int, rows, length: Optional[int] = None) -> None:
+        self.map_writer.write_partition_device(reduce_id, rows, length=length)
+
+    def commit(self):
+        return self.map_writer.commit()
+
+
+class TpuShuffleMapOutputWriter:
+    """One map task's output writer.  Sequential partition protocol enforced by
+    the underlying store writer (NvkvShuffleMapOutputWriter.scala:108)."""
+
+    def __init__(
+        self,
+        store: HbmBlockStore,
+        transport: ShuffleTransport,
+        shuffle_id: int,
+        map_id: int,
+        num_partitions: int,
+    ) -> None:
+        self.shuffle_id = shuffle_id
+        self.map_id = map_id
+        self.num_partitions = num_partitions
+        self._transport = transport
+        self._conf = store.conf
+        #: public: the friend writer/stream classes above drive this handle
+        self.map_writer: MapWriter = store.map_writer(shuffle_id, map_id)
+        self._partition_lengths = np.zeros(num_partitions, dtype=np.int64)
+        self._committed = False
+        self._last_partition = -1
+
+    def get_partition_writer(self, reduce_id: int) -> TpuShufflePartitionWriter:
+        if self._committed:
+            raise TransportError("writer already committed")
+        if reduce_id <= self._last_partition:
+            raise TransportError(
+                f"partitions must be requested in increasing order "
+                f"(got {reduce_id} after {self._last_partition})"
+            )
+        if not (0 <= reduce_id < self.num_partitions):
+            raise ValueError(f"reduce_id {reduce_id} out of range")
+        self._last_partition = reduce_id
+        return TpuShufflePartitionWriter(self, reduce_id)
+
+    def write_partition_device(self, reduce_id: int, rows, length: Optional[int] = None) -> None:
+        """Device-path partition write: ``rows`` is a ``(r, lane)`` int32
+        tensor staged without a host round trip (requires
+        spark.shuffle.tpu.deviceStaging=true).  Follows the same increasing
+        reduce-order protocol as ``get_partition_writer`` and records the true
+        byte length for the commit message."""
+        if not self._conf.device_staging:
+            raise TransportError(
+                "device staging disabled — set spark.shuffle.tpu.deviceStaging=true"
+            )
+        if self._committed:
+            raise TransportError("writer already committed")
+        if reduce_id <= self._last_partition:
+            raise TransportError(
+                f"partitions must be requested in increasing order "
+                f"(got {reduce_id} after {self._last_partition})"
+            )
+        if not (0 <= reduce_id < self.num_partitions):
+            raise ValueError(f"reduce_id {reduce_id} out of range")
+        self.map_writer.write_partition_device(reduce_id, rows, length=length)
+        self._last_partition = reduce_id
+        self._partition_lengths[reduce_id] = (
+            length if length is not None else int(rows.shape[0]) * (rows.shape[1] * 4)
+        )
+
+    def record_partition_length(self, reduce_id: int, count: int) -> None:
+        """Called by PartitionWriterStream.close() with the partition's byte
+        count (the lengths array is Spark's MapOutputCommitMessage)."""
+        self._partition_lengths[reduce_id] = count
+
+    def commit_all_partitions(self) -> np.ndarray:
+        """Pack + ship the MapperInfo commit (NvkvShuffleMapOutputWriter.scala:116-148)
+        and return per-partition lengths (Spark's MapOutputCommitMessage)."""
+        if self._committed:
+            raise TransportError("writer already committed")
+        info = self.map_writer.commit()
+        self._transport.commit_block(info.pack())
+        self._committed = True
+        return self._partition_lengths.copy()
+
+    def abort(self, error: Optional[BaseException] = None) -> None:
+        """Drop without committing (task failure/retry path)."""
+        self._committed = True

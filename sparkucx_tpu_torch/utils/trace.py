@@ -1,0 +1,369 @@
+"""Span tracer with chrome://tracing export — an aux subsystem the reference
+lacks entirely (SURVEY.md section 5.1: "No tracer"; it has only per-op nanoTime
+deltas in debug logs, UcxWorkerWrapper.scala:388-390).
+
+Port of ``sparkucx_tpu/utils/trace.py`` (a verbatim copy), so the span names
+``exchange.seal``, ``exchange.collective`` and ``fetch.device_gather`` read the
+same in traces of both packages.
+
+Usage::
+
+    from sparkucx_tpu_torch.utils.trace import TRACER, span
+
+    with span("exchange.superstep", shuffle_id=0):
+        ...
+    TRACER.export("/tmp/shuffle_trace.json")   # open in chrome://tracing / Perfetto
+
+Disabled by default: every ``span`` is a no-op unless the tracer is enabled
+(constructor, ``TRACER.enable()``, or the ``SPARKUCX_TPU_TRACE`` env var, whose
+value — if not "1" — is a path auto-exported at interpreter exit).  Events are
+"X" (complete) events with thread/process ids, so concurrent mapper threads,
+server threads, and the collective lane out per-track in the viewer.
+
+The obs plane grew this into a distributed tracer:
+
+* Every span carries real ids — ``trace_id`` (the root fetch/superstep that
+  started the causal chain), ``span_id`` (this span), ``parent_id`` (the
+  enclosing span, possibly on ANOTHER executor when the context arrived over
+  the wire as a FetchBlockReq/ReplicaPut trace extension).  Ids ride as
+  top-level event fields so the ``args`` shape stays what it always was.
+* Storage is a bounded ring (``capacity`` events, drop-oldest) with a dropped
+  counter — the flight recorder.  ``recording`` keeps the ring warm even when
+  full tracing is off, so a postmortem bundle always has a trace tail;
+  ``enabled`` additionally lights up the env-var export path.  Both off means
+  the module-level ``span()`` returns a shared no-op — no dict build, no
+  generator frame — the hot submit lane's fast path.
+* ``current_context()`` exposes the innermost open span for wire pickup and
+  ``activate()``/``remote_context()`` re-parent server-side work under it.
+"""
+
+from __future__ import annotations
+
+import atexit
+import itertools
+import json
+import os
+import threading
+import time
+from collections import deque
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Deque, Dict, List, Optional
+
+#: Flight-recorder ring default: bounded so long-running tracing can't OOM an
+#: executor (conf ``obs.ringCapacity`` overrides per cluster).
+DEFAULT_RING_CAPACITY = 8192
+
+#: Process-scoped id generator: the pid in the top bits keeps ids distinct
+#: across daemon worker processes, the counter keeps them distinct in-process
+#: (the loopback cluster shares one TRACER across every virtual executor).
+_ids = itertools.count(1)
+
+
+def _new_id() -> int:
+    return ((os.getpid() & 0xFFFF) << 48) | next(_ids)
+
+
+@dataclass
+class SpanCtx:
+    """An open span's identity — what travels over the wire and what children
+    parent under.  ``trace_id`` names the causal chain, ``span_id`` this span,
+    ``parent_id`` the enclosing span (0 = root)."""
+
+    trace_id: int
+    span_id: int
+    parent_id: int = 0
+    name: str = ""
+    category: str = "shuffle"
+    t0: int = 0  # perf_counter_ns at open; 0 for remote/synthetic contexts
+    args: Dict[str, object] = field(default_factory=dict)
+
+
+class _NoopSpan:
+    """Shared do-nothing context manager returned by the module-level
+    ``span()`` when tracing AND recording are both off: a plain object with
+    empty ``__enter__``/``__exit__`` beats entering a generator-backed
+    contextmanager by an order of magnitude on the hot submit lane."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP_SPAN = _NoopSpan()
+
+
+class Tracer:
+    def __init__(
+        self,
+        enabled: bool = False,
+        recording: bool = False,
+        capacity: int = DEFAULT_RING_CAPACITY,
+    ) -> None:
+        self.enabled = enabled
+        #: flight recorder: keep the ring warm without full tracing on
+        self.recording = recording
+        self._events: Deque[dict] = deque(maxlen=max(1, int(capacity)))  #: guarded by self._lock
+        self._dropped = 0  #: guarded by self._lock
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+
+    # -- switches ----------------------------------------------------------
+
+    @property
+    def active(self) -> bool:
+        """Anything to do at all?  False = the no-op fast path."""
+        return self.enabled or self.recording
+
+    def enable(self) -> None:
+        self.enabled = True
+
+    def disable(self) -> None:
+        self.enabled = False
+
+    def set_capacity(self, capacity: int) -> None:
+        """Resize the flight-recorder ring, keeping the newest events."""
+        with self._lock:
+            self._events = deque(self._events, maxlen=max(1, int(capacity)))
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self._dropped = 0
+
+    @property
+    def dropped(self) -> int:
+        """Events evicted from the ring since the last clear()."""
+        with self._lock:
+            return self._dropped
+
+    # -- thread-local span stack / scopes ----------------------------------
+
+    def _stack(self) -> List[SpanCtx]:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def current_context(self) -> Optional[SpanCtx]:
+        """The innermost open span on THIS thread — what a transport packs
+        into the wire trace extension.  None when no span is open."""
+        st = getattr(self._tls, "stack", None)
+        return st[-1] if st else None
+
+    def current_executor(self) -> Optional[int]:
+        return getattr(self._tls, "eid", None)
+
+    @contextmanager
+    def executor_scope(self, executor_id: Optional[int]):
+        """Attribute events on this thread to a virtual executor — the
+        loopback cluster runs every executor in one process, so pid alone
+        can't tell their tracks apart; ``export_merged`` maps eid -> pid."""
+        prev = getattr(self._tls, "eid", None)
+        self._tls.eid = executor_id
+        try:
+            yield
+        finally:
+            self._tls.eid = prev
+
+    @contextmanager
+    def activate(self, ctx: Optional[SpanCtx]):
+        """Make ``ctx`` the parent for spans opened on this thread — used to
+        re-parent pipelined-window awaits and server-side serve spans under
+        a span opened elsewhere (another thread, or another executor via
+        ``remote_context``).  No event is recorded for ``ctx`` itself."""
+        if ctx is None or not self.active:
+            yield
+            return
+        st = self._stack()
+        st.append(ctx)
+        try:
+            yield
+        finally:
+            st.pop()
+
+    @staticmethod
+    def remote_context(trace_id: int, span_id: int) -> SpanCtx:
+        """A synthetic ctx for a span open on ANOTHER executor (arrived as a
+        wire trace extension); activate() it to parent local spans there."""
+        return SpanCtx(trace_id=trace_id, span_id=span_id, name="<remote>")
+
+    # -- span lifecycle ----------------------------------------------------
+
+    def start_span(self, name: str, category: str = "shuffle", **args) -> Optional[SpanCtx]:
+        """Open a span WITHOUT entering it on the thread-local stack — the
+        explicit half of the API for spans whose open and close straddle
+        threads or interleave (pipelined fetch windows).  Pair with
+        ``end_span``; parent under it elsewhere via ``activate``."""
+        if not self.active:
+            return None
+        parent = self.current_context()
+        return SpanCtx(
+            trace_id=parent.trace_id if parent else _new_id(),
+            span_id=_new_id(),
+            parent_id=parent.span_id if parent else 0,
+            name=name,
+            category=category,
+            t0=time.perf_counter_ns(),
+            args={k: _jsonable(v) for k, v in args.items()} if args else {},
+        )
+
+    def end_span(self, ctx: Optional[SpanCtx], **extra_args) -> None:
+        if ctx is None or not self.active:
+            return
+        if extra_args:
+            ctx.args.update({k: _jsonable(v) for k, v in extra_args.items()})
+        self._record_span(ctx, time.perf_counter_ns() - ctx.t0)
+
+    @contextmanager
+    def span(self, name: str, category: str = "shuffle", **args):
+        """Time a region; nested spans nest in the viewer (same tid)."""
+        if not self.active:
+            yield
+            return
+        ctx = self.start_span(name, category=category, **args)
+        st = self._stack()
+        st.append(ctx)
+        try:
+            yield ctx
+        finally:
+            st.pop()
+            self._record_span(ctx, time.perf_counter_ns() - ctx.t0)
+
+    def _record_span(self, ctx: SpanCtx, dur_ns: int) -> None:
+        ev = {
+            "name": ctx.name,
+            "cat": ctx.category,
+            "ph": "X",
+            "ts": ctx.t0 / 1e3,  # microseconds, the chrome trace unit
+            "dur": dur_ns / 1e3,
+            "pid": os.getpid(),
+            "tid": threading.get_ident() & 0xFFFFFFFF,
+            "uid": _new_id(),
+            "trace_id": ctx.trace_id,
+            "span_id": ctx.span_id,
+            "parent_id": ctx.parent_id,
+        }
+        if ctx.args:
+            ev["args"] = ctx.args
+        eid = getattr(self._tls, "eid", None)
+        if eid is not None:
+            ev["eid"] = eid
+        self._append(ev)
+
+    def instant(self, name: str, category: str = "shuffle", **args) -> None:
+        """Zero-duration marker (commits, failures, retries)."""
+        if not self.active:
+            return
+        parent = self.current_context()
+        ev = {
+            "name": name,
+            "cat": category,
+            "ph": "i",
+            "s": "t",
+            "ts": time.perf_counter_ns() / 1e3,
+            "pid": os.getpid(),
+            "tid": threading.get_ident() & 0xFFFFFFFF,
+            "uid": _new_id(),
+            "trace_id": parent.trace_id if parent else 0,
+            "span_id": _new_id(),
+            "parent_id": parent.span_id if parent else 0,
+        }
+        if args:
+            ev["args"] = {k: _jsonable(v) for k, v in args.items()}
+        eid = getattr(self._tls, "eid", None)
+        if eid is not None:
+            ev["eid"] = eid
+        self._append(ev)
+
+    def _append(self, ev: dict) -> None:
+        with self._lock:
+            if len(self._events) == self._events.maxlen:
+                self._dropped += 1  # ring full: deque drops the oldest
+            self._events.append(ev)
+
+    # -- export ------------------------------------------------------------
+
+    @property
+    def events(self) -> List[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def tail(self, n: int) -> List[dict]:
+        """The newest ``n`` ring events without copying the whole ring —
+        the flight recorder's capture path runs on error paths and must
+        stay cheap even with a full ring."""
+        with self._lock:
+            if n >= len(self._events):
+                return list(self._events)
+            out = list(itertools.islice(reversed(self._events), n))
+        out.reverse()
+        return out
+
+    def to_json(self) -> str:
+        return json.dumps({"traceEvents": self.events, "displayTimeUnit": "ms"})
+
+    def export(self, path: str) -> int:
+        """Write the chrome trace file; returns the event count."""
+        events = self.events
+        with open(path, "w") as f:
+            f.write(json.dumps({"traceEvents": events, "displayTimeUnit": "ms"}))
+        return len(events)
+
+
+def merge_events(buffers: List[List[dict]]) -> List[dict]:
+    """Merge per-executor event buffers into one Perfetto-ready list.
+
+    Events that carry an ``eid`` (executor scope) get ``pid = eid`` so every
+    executor lands on its own process track in the viewer; duplicates are
+    dropped by event ``uid`` (the loopback cluster shares one TRACER across
+    executors, so a TRACE_PULL sweep returns overlapping views)."""
+    seen = set()
+    merged: List[dict] = []
+    for buf in buffers:
+        for ev in buf:
+            uid = ev.get("uid")
+            if uid is not None:
+                if uid in seen:
+                    continue
+                seen.add(uid)
+            ev = dict(ev)
+            if ev.get("eid") is not None:
+                ev["pid"] = ev["eid"]
+            merged.append(ev)
+    merged.sort(key=lambda e: e.get("ts", 0))
+    return merged
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    return str(v)
+
+
+def _from_env() -> "Tracer":
+    flag = os.environ.get("SPARKUCX_TPU_TRACE", "")
+    t = Tracer(enabled=bool(flag))
+    if flag and flag != "1":
+        atexit.register(lambda: t.events and t.export(flag))
+    return t
+
+
+#: Process-wide default tracer (env-gated); libraries call ``span(...)``.
+TRACER = _from_env()
+
+
+def span(name: str, category: str = "shuffle", **args):
+    if not TRACER.active:  # hot-path guard: no kwargs dict churn, no generator
+        return _NOOP_SPAN
+    return TRACER.span(name, category=category, **args)
+
+
+def instant(name: str, category: str = "shuffle", **args) -> None:
+    if not TRACER.active:
+        return
+    TRACER.instant(name, category=category, **args)
