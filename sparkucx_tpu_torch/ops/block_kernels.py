@@ -26,7 +26,7 @@ bandwidth; the kernel source says how its design goes after that bound.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -127,31 +127,48 @@ def _launch(fn_name: str, starts, counts, outs, num_blocks, src, dst, packed_row
 # -- gather ----------------------------------------------------------------
 
 
-def block_gather_ref(starts, counts, outs, src: torch.Tensor, out_rows: int) -> torch.Tensor:
+def _gather_out(src: torch.Tensor, out_rows: int, out: Optional[torch.Tensor]) -> torch.Tensor:
+    if out is None:
+        return torch.empty((out_rows, src.shape[1]), dtype=src.dtype, device=src.device)
+    _check_rows("out", out)
+    if tuple(out.shape) != (out_rows, src.shape[1]) or out.dtype != src.dtype or out.device != src.device:
+        raise ValueError(
+            f"out {tuple(out.shape)} {out.dtype} {out.device} must be ({out_rows}, {src.shape[1]}) "
+            f"{src.dtype} on {src.device}"
+        )
+    return out
+
+
+def block_gather_ref(
+    starts, counts, outs, src: torch.Tensor, out_rows: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Plain version: one slice copy per non-empty block.  Rows past the packed
-    total are unspecified (``torch.empty``)."""
-    out = torch.empty((out_rows, src.shape[1]), dtype=src.dtype, device=src.device)
+    total are unspecified (``torch.empty``, or what ``out`` held)."""
+    out = _gather_out(src, out_rows, out)
     for s, c, o in zip(starts.tolist(), counts.tolist(), outs.tolist()):
         if c > 0:
             out[o : o + c] = src[s : s + c]
     return out
 
 
-def block_gather(starts, counts, outs, src: torch.Tensor, out_rows: int) -> torch.Tensor:
+def block_gather(
+    starts, counts, outs, src: torch.Tensor, out_rows: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """``out[outs[b] + k] = src[starts[b] + k]`` for ``k < counts[b]``; returns
-    a new ``(out_rows, lane)`` tensor whose rows past the packed total are
-    UNSPECIFIED (the contract of ``build_block_gather``).  The plan is packed
-    (``plan_tensors`` checks it) and its blocks lie inside ``src``; zero-count
-    entries are no-ops."""
+    the ``(out_rows, lane)`` output, a new tensor unless the caller passes a
+    contiguous ``out`` (a row slice of a larger buffer, say).  Its rows past
+    the packed total are UNSPECIFIED (the contract of ``build_block_gather``).
+    The plan is packed (``plan_tensors`` checks it) and its blocks lie inside
+    ``src``, which ``out`` must not overlap; zero-count entries are no-ops."""
     _check_rows("src", src)
     num_blocks = _check_plan(starts, counts, outs, src.device)
     if out_rows < 0:
         raise ValueError(f"out_rows must be >= 0, got {out_rows}")
     if src.device.type == "cpu":
-        return block_gather_ref(starts, counts, outs, src, out_rows)
+        return block_gather_ref(starts, counts, outs, src, out_rows, out)
     if src.device.type != "cuda":
         raise ValueError(f"block_gather runs on cuda or cpu tensors, got {src.device}")
-    out = torch.empty((out_rows, src.shape[1]), dtype=src.dtype, device=src.device)
+    out = _gather_out(src, out_rows, out)
     if num_blocks and out_rows:
         _launch("block_gather_launch", starts, counts, outs, num_blocks, src, out, out_rows, src.shape[0])
         block_gather.launches += 1

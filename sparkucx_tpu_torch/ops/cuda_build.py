@@ -29,7 +29,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR / "_build"
 
 #: library name -> its source file under csrc/
-SOURCES: Dict[str, str] = {"block_copy": "block_copy.cu"}
+SOURCES: Dict[str, str] = {"block_copy": "block_copy.cu", "radix_sort": "radix_sort.cu"}
 
 NVCC_FLAGS: List[str] = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -195,6 +195,23 @@ def test_plan_tensors_rejects_unpacked_plans(starts, counts, outs):
         plan_tensors(starts, counts, outs, "cpu")
 
 
+@pytest.mark.parametrize("name", ["ragged", "whole_source"])
+def test_gather_into_a_row_slice_matches_jax(name):
+    """``out=``: the packed rows land in a row slice of a larger buffer (the
+    columnar exchange's receive buffer); rows outside the slice are untouched."""
+    src = _src()
+    starts, counts, outs, total = pack_plan(GATHER_PLANS[name], ROW)
+    expected = _jax_gather("xla", starts, counts, outs, src, total)
+    buf = torch.full((total + 6, LANE), -5, dtype=torch.int32)
+    s, c, o = plan_tensors(starts, counts, outs, "cpu")
+    got = block_gather(s, c, o, torch.from_numpy(src), total, out=buf[3 : 3 + total])
+    assert got.data_ptr() == buf[3].data_ptr()
+    assert np.array_equal(buf[3 : 3 + total].numpy(), expected[:total])
+    assert (buf[:3] == -5).all() and (buf[3 + total :] == -5).all()
+    with pytest.raises(ValueError, match="must be"):
+        block_gather(s, c, o, torch.from_numpy(src), total, out=buf[:total - 1])
+
+
 def test_wrappers_validate_inputs():
     src = torch.from_numpy(_src())
     s, c, o = plan_tensors([0], [1], [0], "cpu")

@@ -1,6 +1,7 @@
 """Kernel-against-plain checks for the card: the Hopper block gather and block
-scatter (sparkucx_tpu_torch/csrc/block_copy.cu) against their plain PyTorch
-versions on CUDA tensors, bit-exact.  Marked ``cuda``; each test skips unless
+scatter (sparkucx_tpu_torch/csrc/block_copy.cu) and the radix pass
+(csrc/radix_sort.cu) against their plain PyTorch versions on CUDA tensors,
+bit-exact.  Marked ``cuda``; each test skips unless
 a CUDA device is present (``python -m pytest tests/test_torch_cuda.py`` on the
 machine with the card).  No JAX here."""
 
@@ -15,6 +16,8 @@ from sparkucx_tpu_torch.ops.block_kernels import (
     block_scatter_ref,
     plan_tensors,
 )
+from sparkucx_tpu_torch.ops.radix import TILE_ROWS, radix_pass, radix_pass_ref, radix_sort_rows
+from sparkucx_tpu_torch.ops.sort import SortSpec, build_distributed_sort
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +80,56 @@ def test_rows_outside_the_source_are_not_copied(cuda):
     got = block_gather(s, c, o, src, 20)
     torch.cuda.synchronize()
     assert torch.equal(got[:10], src[90:])
+
+
+def _radix_rows(device, n, width, seed, sign_bit=True):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rows = torch.randint(-(2**31), 2**31 - 1, (n, width), dtype=torch.int32, generator=gen, device=device)
+    if sign_bit and n:
+        rows[::3, 0] = -1  # key 0xFFFFFFFF
+        rows[1::5, 0] |= -(2**31)  # keys >= 2**31
+    return rows
+
+
+# N = 1 and 2; one whole tile; one row past it; a partial last tile that also
+# ends inside a 256-row chunk; many tiles
+@pytest.mark.parametrize("n,width", [(1, 1), (2, 2), (TILE_ROWS, 3), (TILE_ROWS + 1, 25),
+                                     (3 * TILE_ROWS + 1001, 25), (100_003, 25)])
+@pytest.mark.parametrize("shift", [0, 8, 24])
+def test_radix_pass_matches_plain(cuda, n, width, shift):
+    rows = _radix_rows(cuda, n, width, seed=n + shift)
+    before = radix_pass.launches
+    got = radix_pass(rows, shift)
+    torch.cuda.synchronize()
+    assert radix_pass.launches == before + 1
+    assert torch.equal(got, radix_pass_ref(rows, shift))
+
+
+def test_radix_sort_matches_library_sort(cuda):
+    """Sign-bit keys and a partial last tile, float32 rows through their bits."""
+    rows = _radix_rows(cuda, 300_001, 25, seed=7).view(torch.float32)
+    got = radix_sort_rows(rows)
+    keys = rows[:, 0].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    want = rows.index_select(0, torch.sort(keys, stable=True).indices)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_radix_distributed_sort_on_the_card(cuda):
+    n = 50_000
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    keys = torch.randint(0, 2**32, (n,), dtype=torch.int64, generator=gen, device=cuda)
+    keys[::4] = 2**32 - 1
+    payload = torch.randint(-(2**31), 2**31 - 1, (n, 24), dtype=torch.int32, generator=gen, device=cuda)
+    fn = build_distributed_sort(["cuda"], SortSpec(1, n, n, impl="radix"))
+    ko, po, counts = fn(keys, payload, [n - 7])
+    masked = keys.clone()
+    masked[n - 7 :] = 2**32 - 1
+    want_k, order = torch.sort(masked, stable=True)
+    want_p = payload.index_select(0, order)
+    want_p[n - 7 :] = 0
+    torch.cuda.synchronize()
+    assert counts.tolist() == [n - 7]
+    assert torch.equal(ko, want_k) and torch.equal(po, want_p)

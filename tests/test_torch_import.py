@@ -9,6 +9,8 @@ import textwrap
 import pytest
 import torch
 
+from sparkucx_tpu_torch.ops.columnar import ColumnarSpec, build_columnar_shuffle
+from sparkucx_tpu_torch.ops.sort import SortSpec, build_distributed_sort, run_distributed_sort
 from sparkucx_tpu_torch.shuffle.manager import TpuShuffleManager
 from sparkucx_tpu_torch.transport.tpu import TpuShuffleCluster
 from sparkucx_tpu_torch.utils.devices import resolve_devices
@@ -50,3 +52,15 @@ def test_explicit_cpu_devices():
     assert all(t.device == torch.device("cpu") for t in cluster.transports)
     with pytest.raises(ValueError, match="num_executors"):
         resolve_devices(["cpu"], 2)
+
+
+def test_sort_entry_points_default_to_cuda(monkeypatch):
+    import numpy as np
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_distributed_sort(None, SortSpec(1, 8, 8, impl="radix"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_distributed_sort(None, SortSpec(4, 8, 8), np.zeros(4, np.uint32), np.zeros((4, 24), np.int32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_columnar_shuffle(None, ColumnarSpec(2, 8, 8, 1))
