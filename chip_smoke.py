@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``sparkucx_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), then runs nine phases; any
+process per source, all started together), then runs thirteen phases; any
 failure propagates and the exit code is non-zero:
 
 1. environment: card, power limit, versions, kernel build time;
@@ -41,7 +41,28 @@ failure propagates and the exit code is non-zero:
    the library sort, then K1 held against its plain version on that run's
    own exchange (its fused 100-byte rows and every receiver's plan); then
    ``build_distributed_sort`` on the uncut 10 GB made on the card, checked
-   and timed, with its peak device memory.
+   and timed, with its peak device memory;
+10. K3 (ring exchange) and K4 (ring combine) against their plain versions,
+    bit-equal: n in {2, 3, 4, 8}, chunks in {1, 2, 4}, G = 1, 8, 64 and 2**20
+    (K4's accumulator in device memory), duplicate keys, keys >= 2**31,
+    int8 and blockfloat payloads, all-padding windows, grids past 2**31
+    bytes, K4 twice and compared bit for bit;
+11. TPC-H Q1 at SF=10 (59,986,052 lineitem rows made from ``--seed``) on
+    four executors sharing the card through ``run_grouped_aggregate`` with
+    ``exchange.fusedCombine=true`` (K4 launches set to 0 before and read
+    after) and the unfused route (K1, its count likewise): float32 against
+    a float64 oracle and each other, an int32 twin bit-exact; both routes
+    timed on device tensors with peak memory and a ``torch.profiler``
+    summary; K4 and K1 held against their plain versions on the runs' own
+    inputs and timed;
+12. TPC-H Q18 stage 1 at SF=1 (GROUP BY l_orderkey over 6,001,215 rows, G =
+    2**23): fused (K4), unfused (K1) and numpy bit-exact; K4 and K1 held
+    against their plain versions on the runs' own inputs;
+13. GroupByTest at phase 3's widths on four executors sharing the card under
+    ``exchange.impl=pallas`` (K2 seal, K3, then K1 compaction; every count
+    set to 0 just before ``run_exchange`` and read just after) against
+    ``stock`` and ``oracle_exchange``; K2, K3 and K1 held against their
+    plain versions on the run's own inputs and timed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -50,6 +71,7 @@ available.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -721,14 +743,71 @@ def host_drivers(device, n: int = 1_000_000, batch: int = 400_000) -> None:
 # -- phase 9 ---------------------------------------------------------------
 
 
+def recording(module, name: str, seen: dict):
+    """Replace ``module.name`` with a wrapper that keeps its last call's
+    arguments in ``seen["args"]`` and every call's in ``seen["calls"]``;
+    returns a function restoring the original."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        seen["args"] = args
+        seen.setdefault("calls", []).append(args)
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, real)
+
+
+def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: int = 10) -> dict:
+    """K1 against its plain version on one path's own source rows and
+    per-receiver plans ``[((starts, counts, outs), rows filled), ...]``:
+    the filled rows bit-equal for every receiver; the receiver that fills
+    the most rows timed beside the plain version and the byte bound (each
+    filled row read once and written once, plus the plan).  Returns the
+    reading."""
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_gather_ref, plan_tensors
+
+    for j, (plan, filled) in enumerate(plans):
+        p = plan_tensors(*plan, device)
+        got = block_gather(*p, src, out_rows)
+        want = block_gather_ref(*p, src, out_rows)
+        torch.cuda.synchronize()
+        assert torch.equal(got[:filled].view(torch.int32), want[:filled].view(torch.int32)), (
+            f"block_gather at {label}, receiver {j}: mismatch")
+        del got, want
+    j = max(range(len(plans)), key=lambda i: plans[i][1])
+    plan, filled = plans[j]
+    p, segments = plan_tensors(*plan, device), len(plan[1])
+    out = torch.empty((out_rows, src.shape[1]), dtype=src.dtype, device=device)
+    k_ms = time_ms(lambda: block_gather(*p, src, out_rows, out=out), reps)
+    p_ms = time_ms(lambda: block_gather_ref(*p, src, out_rows, out=out), reps)
+    row_bytes = src.shape[1] * src.element_size()
+    b_ms = (2 * filled * row_bytes + 12 * segments) / HBM_BYTES_PER_S * 1e3
+    log(f"  block_gather at {label}: every receiver ({len(plans)}, {segments} segments each) equal to "
+        f"block_gather_ref; receiver {j} ({filled} rows of {row_bytes} B): {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "rows": filled, "row_bytes": row_bytes}
+
+
+def check_k1_columnar(device, label: str, args) -> dict:
+    """:func:`check_k1` on one recorded ``exchange_sorted_rows`` call
+    (ops/columnar.py): its rows, and every receiver's plan."""
+    from sparkucx_tpu_torch.ops.columnar import receive_plan
+
+    cspec, rows, sizes = args
+    rc = cspec.recv_capacity
+    plans = [(receive_plan(sizes, j, cspec.capacity, rc), min(int(sizes[:, j].sum()), rc))
+             for j in range(sizes.shape[0])]
+    return check_k1(device, label, rows, plans, rc)
+
+
 def shared_device_sort(device, n_rows: int = 25_000_000, n: int = 4) -> int:
     """The sample sort with four executors on the card through the host
     driver: exchange through K1.  Then K1 against its plain version on that
     run's own exchange: the fused rows and every receiver's plan.  Returns
     K1's launches in the run."""
     from sparkucx_tpu_torch.ops import sort as sort_mod
-    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_gather_ref, plan_tensors
-    from sparkucx_tpu_torch.ops.columnar import receive_plan
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather
     from sparkucx_tpu_torch.ops.sort import SortSpec, run_distributed_sort
 
     keys, payload = terasort_data(device, n_rows, seed=SEED + 8)
@@ -744,13 +823,7 @@ def shared_device_sort(device, n_rows: int = 25_000_000, n: int = 4) -> int:
 
     # keep the exchange's inputs (the sort's last call) for the K1 check below
     seen = {}
-    exchange = sort_mod.exchange_sorted_rows
-
-    def recording_exchange(cspec, rows, sizes):
-        seen.update(cspec=cspec, rows=rows, sizes=sizes)
-        return exchange(cspec, rows, sizes)
-
-    sort_mod.exchange_sorted_rows = recording_exchange
+    restore = recording(sort_mod, "exchange_sorted_rows", seen)
     try:
         torch.cuda.reset_peak_memory_stats()
         before = block_gather.launches
@@ -759,7 +832,7 @@ def shared_device_sort(device, n_rows: int = 25_000_000, n: int = 4) -> int:
         secs = time.perf_counter() - t0
         launches = block_gather.launches - before
     finally:
-        sort_mod.exchange_sorted_rows = exchange
+        restore()
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert np.array_equal(sk, want_k) and np.array_equal(sp, want_p), (
         "the 4-executor sort differs from the library sort")
@@ -773,24 +846,8 @@ def shared_device_sort(device, n_rows: int = 25_000_000, n: int = 4) -> int:
 
     # K1 at this path's shapes: 100-byte rows (the 4-byte path), n segments
     # per receiver of about n_rows / n**2 rows each
-    cspec, rows, sizes = seen["cspec"], seen["rows"], seen["sizes"]
-    rc = cspec.recv_capacity
-    for j in range(n):
-        plan = plan_tensors(*receive_plan(sizes, j, cspec.capacity, rc), device)
-        total = min(int(sizes[:, j].sum()), rc)
-        got = block_gather(*plan, rows, rc)
-        want = block_gather_ref(*plan, rows, rc)
-        torch.cuda.synchronize()
-        assert torch.equal(got[:total], want[:total]), f"block_gather at the n={n} sort's receiver {j}: mismatch"
-    log(f"  block_gather at the n={n} sort's exchange: every receiver ({n} segments, about "
-        f"{total} rows of {rows.shape[1] * 4} B each) equal to block_gather_ref")
-    out = torch.empty((rc, rows.shape[1]), dtype=rows.dtype, device=device)
-    k_ms = time_ms(lambda: block_gather(*plan, rows, rc, out=out), 10)
-    p_ms = time_ms(lambda: block_gather_ref(*plan, rows, rc, out=out), 10)
-    b_ms = (2 * total * rows.shape[1] * 4 + 12 * n) / HBM_BYTES_PER_S * 1e3
-    log(f"  block_gather at receiver {n - 1} of the n={n} sort ({total} rows of {rows.shape[1] * 4} B): "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms")
-    del seen, rows, out, got, want
+    check_k1_columnar(device, f"the n={n} sort's exchange", seen.pop("args"))
+    del seen
     torch.cuda.empty_cache()
     return launches
 
@@ -838,7 +895,585 @@ def shared_device_sort_uncut(device, n_rows: int = TERASORT_ROWS, n: int = 4, re
             "peak_gb": peak, "k1_launches": launches, "busy": busy}
 
 
+# -- phase 10: K3 and K4 --------------------------------------------------------
+
+
+def ring_rows(device, n, slot, lane, gen):
+    return torch.randint(-(2**31), 2**31 - 1, (n * n * slot, lane), dtype=torch.int32,
+                         generator=gen, device=device)
+
+
+def combine_staging(device, n, slot, cspec, gen, fill=0.5, distinct=False):
+    """Slot staging of ``[key | payload | count]`` rows made on the card: each
+    sender region holds a valid prefix of up to ``fill * slot`` rows (its
+    length random), all-zero rows after it.  Keys lie below G — distinct
+    inside a region when asked — and about one in 64 is a key >= 2**31,
+    outside every domain, which no group may take."""
+    from sparkucx_tpu_torch.ops.compress import quantize_rows
+
+    total, g = n * n * slot, cspec.num_groups
+    idx = torch.arange(total, device=device)
+    region, pos = idx // slot, idx % slot
+    limit = min(int(fill * slot), g if distinct else slot)
+    fills = torch.randint(0, limit + 1, (n * n,), generator=gen, device=device)
+    valid = pos < fills[region]
+    if distinct:  # an odd multiplier permutes [0, G) for G a power of two
+        keys = (pos * 2654435761 + region * 40503) % g
+    else:
+        keys = torch.randint(0, g, (total,), generator=gen, device=device)
+    high = torch.randint(0, 64, (total,), generator=gen, device=device) == 0
+    keys = torch.where(high, 2**31 + region, keys)
+    counts = torch.randint(1, 5, (total,), generator=gen, device=device, dtype=torch.int32)
+    if cspec.torch_dtype == torch.int32:
+        payload = torch.randint(-1000, 1000, (total, cspec.width), generator=gen, device=device,
+                                dtype=torch.int32)
+    else:
+        vals = torch.randn((total, cspec.width), generator=gen, device=device) * 100
+        payload = vals if cspec.qspec is None else quantize_rows(cspec.qspec, vals).view(torch.float32)
+        payload = payload.view(torch.int32)
+    bits = ((keys + 2**31) % 2**32 - 2**31).to(torch.int32)  # the uint32 key's pattern
+    rows = torch.cat([bits[:, None], payload, counts[:, None]], dim=1)
+    rows[~valid] = 0
+    return rows.view(cspec.torch_dtype)
+
+
+def check_ring_kernels(device, big=True) -> None:
+    """Phase 10: K3 and K4 against their plain versions, bit-equal."""
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import (
+        ring_combine_grid, ring_combine_grid_ref, ring_combine_tier, ring_exchange_grid,
+        ring_exchange_grid_ref,
+    )
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 20)
+
+    def k3_case(name, n, chunks, slot, lane):
+        data = ring_rows(device, n, slot, lane, gen)
+        steps = ring_schedule(n, chunks).raw_steps()
+        got = ring_exchange_grid(n, slot, slot // chunks, steps, data)
+        want = ring_exchange_grid_ref(n, slot, slot // chunks, steps, data)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"ring_exchange_grid {name}: mismatch"
+        log(f"  ring_exchange_grid {name:<34} n={n} chunks={chunks} slot={slot:>7} "
+            f"row={lane * 4:>3} B  equal")
+
+    for n in (2, 3, 4, 8):
+        for chunks in (1, 2, 4):
+            k3_case("", n, chunks, 1000 * chunks, 9)
+        k3_case("16-byte words", n, 2, 512, 128)
+    if big:
+        slot = 300_000  # 4 x 4 x 300,000 rows of 512 B = 2.46 GB
+        k3_case(f"{16 * slot * 512 / 2**30:.2f} GiB grid (past 2**31 B)", 4, 2, slot, 128)
+        torch.cuda.empty_cache()
+
+    def k4_case(name, n, chunks, slot, cspec, fill=0.5, distinct=False):
+        data = combine_staging(device, n, slot, cspec, gen, fill=fill, distinct=distinct)
+        steps = ring_schedule(n, chunks).raw_steps()
+        w = slot // chunks
+        grid, av, ac = ring_combine_grid(n, slot, w, steps, cspec, data)
+        again = ring_combine_grid(n, slot, w, steps, cspec, data)
+        pg, pv, pc = ring_combine_grid_ref(n, slot, w, steps, cspec, data)
+        torch.cuda.synchronize()
+        for a, b in zip(again, (grid, av, ac)):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"ring_combine_grid {name}: two runs differ"
+        assert torch.equal(grid.view(torch.int32), pg.view(torch.int32)), f"ring_combine_grid {name}: grid"
+        assert torch.equal(ac, pc), f"ring_combine_grid {name}: counts"
+        assert torch.equal(av.view(torch.int32), pv.view(torch.int32)), f"ring_combine_grid {name}: values"
+        q = cspec.quantize_mode if cspec.quantize_mode != "off" else np.dtype(cspec.dtype).name
+        log(f"  ring_combine_grid  {name:<34} n={n} chunks={chunks} G={cspec.num_groups:>8} "
+            f"{q:<10} {ring_combine_tier(cspec):<6} tier  equal, two runs bit-equal")
+
+    dup = CombineSpec(8, ("sum", "min", "max", "avg"), np.int32)
+    for n in (2, 3, 4, 8):
+        for chunks in (1, 2, 4):
+            k4_case("duplicate keys", n, chunks, 1024 * chunks, dup)
+    k4_case("G = 1", 4, 2, 4096, CombineSpec(1, ("sum", "min", "max"), np.int32))
+    k4_case("all-padding windows", 4, 2, 4096, dup, fill=0.0)
+    k4_case("distinct keys", 4, 2, 4096, CombineSpec(8, ("sum", "min", "max"), np.float32), distinct=True)
+    for mode in ("int8", "blockfloat"):
+        k4_case(f"{mode} payload", 4, 2, 4096,
+                CombineSpec(64, ("sum", "avg", "max"), np.float32, quantize_mode=mode, quantize_block=4),
+                distinct=True)
+    k4_case("G = 2**20, duplicate keys", 4, 2, 1 << 16, CombineSpec(1 << 20, ("sum", "min", "max"), np.int32))
+    k4_case("G = 2**20, distinct keys", 4, 2, 1 << 16, CombineSpec(1 << 20, ("sum", "max"), np.float32),
+            distinct=True)
+    if big:
+        slot = 7_000_000  # 4 x 4 x 7,000,000 rows of 20 B = 2.24 GB
+        k4_case(f"{16 * slot * 20 / 2**30:.2f} GiB grid (past 2**31 B)", 4, 2, slot,
+                CombineSpec(8, ("sum", "min", "max"), np.int32))
+    torch.cuda.empty_cache()
+
+
+# -- phase 11: TPC-H Q1 at SF=10 ----------------------------------------------------
+
+#: TPC-H v3 §4.2.3 dates as days since 1992-01-01
+_STARTDATE, _CURRENTDATE, _ENDDATE = 0, 1263, 2556  # 1992-01-01, 1995-06-17, 1998-12-31
+_Q1_SHIPDATE_MAX = 2436  # 1998-12-01 minus 90 days = 1998-09-02
+Q1_ROWS = 59_986_052  # lineitem at SF=10
+Q1_AGGS = ("sum", "sum", "sum", "sum", "avg", "avg", "avg")
+Q1_INT_AGGS = ("sum", "min", "max", "sum")
+#: float32 Q1 against the float64 oracle, relative: the sums run over about
+#: 3.7 million rows per executor and group, where the running sum's float32
+#: unit in the last place grows to 2**-23 of ~1.4e11; rounding at each of the
+#: additions gives about 1e-4 relative (a random walk); 1e-3 leaves room.
+Q1_RTOL = 1e-3
+#: float32 Q1, fused route against unfused: both fold the same partial rows
+#: (at most 4 per group) and differ only in the order of those few
+#: additions, a few float32 units in the last place (6e-8 each); the H100
+#: reading was 1.172e-7.  1e-5 catches an error in the fold itself.
+Q1_ROUTE_RTOL = 1e-5
+
+
+def q1_lineitem(seed: int, rows: int = Q1_ROWS):
+    """Q1's lineitem columns per TPC-H v3 §4.2.3, from ``seed``: returns
+    (keys uint32 = 2 * returnflag + linestatus with A/N/R = 0/1/2 and F/O =
+    0/1, the shipdate filter, float32 values (qty, extendedprice,
+    disc_price, charge, qty, extendedprice, discount), int32 twin values
+    (qty, price in cents twice, discount in hundredths))."""
+    rng = np.random.default_rng(seed)
+    qty = rng.integers(1, 51, rows, dtype=np.int32)
+    partkey = rng.integers(1, 200_000 * 10 + 1, rows, dtype=np.int64)
+    retail_cents = 90000 + (partkey // 10) % 20001 + 100 * (partkey % 1000)  # P_RETAILPRICE
+    del partkey
+    price_cents = (qty * retail_cents).astype(np.int32)
+    del retail_cents
+    disc = rng.integers(0, 11, rows, dtype=np.int32)  # hundredths
+    tax = rng.integers(0, 9, rows, dtype=np.int32)
+    ship = rng.integers(_STARTDATE, _ENDDATE - 151 + 1, rows, dtype=np.int32) + rng.integers(1, 122, rows, dtype=np.int32)
+    receipt = ship + rng.integers(1, 31, rows, dtype=np.int32)
+    status = (ship > _CURRENTDATE).astype(np.uint32)  # O after CURRENTDATE
+    flag = np.where(receipt <= _CURRENTDATE, np.where(rng.random(rows) < 0.5, 2, 0), 1).astype(np.uint32)
+    del receipt
+    keys = 2 * flag + status
+    mask = ship <= _Q1_SHIPDATE_MAX
+    del ship, flag, status
+    price = price_cents.astype(np.float64) / 100
+    disc_price = price * (1 - disc / 100)
+    values = np.empty((rows, 7), np.float32)
+    values[:, 0] = qty
+    values[:, 1] = price
+    values[:, 2] = disc_price
+    values[:, 3] = disc_price * (1 + tax / 100)
+    values[:, 4] = qty
+    values[:, 5] = price
+    values[:, 6] = disc / 100
+    del price, disc_price, tax
+    ints = np.stack([qty, price_cents, price_cents, disc], axis=1)
+    return keys, mask, values, ints
+
+
+def k4_timings(device, args) -> dict:
+    """K4 at the recorded call's shapes: held against its plain version
+    (bit-equal), timed beside it, beside one ``scatter_reduce_`` per column
+    over the whole landed grid and beside its byte bound."""
+    from sparkucx_tpu_torch.ops.combine import _REDUCE
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_grid_ref, ring_combine_tier
+    from sparkucx_tpu_torch.ops.sort import key_values
+
+    n, slot, sched, data, cspec = args
+    w, steps = slot // sched.chunks, sched.raw_steps()
+    grid, av, ac = ring_combine_grid(n, slot, w, steps, cspec, data)
+    pg, pv, pc = ring_combine_grid_ref(n, slot, w, steps, cspec, data)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(grid.view(torch.int32), pg.view(torch.int32)),
+              max_abs_err(av.view(torch.int32), pv.view(torch.int32)), max_abs_err(ac, pc))
+    assert err == 0, "ring_combine_grid at the path's shapes differs from its plain version"
+    del pg, pv, pc
+    torch.cuda.empty_cache()
+    k_ms = time_ms(lambda: ring_combine_grid(n, slot, w, steps, cspec, data), 5)
+    p_ms = time_ms(lambda: ring_combine_grid_ref(n, slot, w, steps, cspec, data), 2)
+    # the library yardstick: the landed grid folded by scatter_reduce_, one call per column
+    g = cspec.num_groups
+    keys = key_values(grid[:, 0])
+    counts = grid[:, -1].view(torch.int32)
+    receiver = torch.arange(grid.shape[0], device=device) // (n * slot)
+    idx = torch.where((counts > 0) & (keys < g), receiver * g + keys, n * g)
+    lib_v = torch.empty((n * g + 1, cspec.width), dtype=cspec.torch_dtype, device=device)
+    lib_c = torch.zeros(n * g + 1, dtype=torch.int32, device=device)
+    cols = [grid[:, 1 + c].contiguous() for c in range(cspec.width)]
+    del keys, receiver
+
+    def library():
+        for c, agg in enumerate(cspec.aggs):
+            lib_v[:, c].scatter_reduce_(0, idx, cols[c], _REDUCE[agg], include_self=True)
+        lib_c.scatter_add_(0, idx, counts)
+
+    l_ms = time_ms(library, 3)
+    moved = 2 * data.numel() * 4 + n * g * (cspec.width + 1) * 4
+    del grid, av, ac, idx, lib_v, lib_c, cols, counts
+    torch.cuda.empty_cache()
+    return {
+        "name": "ring_combine_grid", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/ring_exchange.cu",
+        "replaces": "sparkucx_tpu/ops/pallas_kernels.py:660",
+        "launches": None, "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": l_ms,
+        "shape": f"n={n}, {n * n * slot} rows of {data.shape[1] * 4} B, G={g}, {ring_combine_tier(cspec)} tier",
+    }
+
+
+def tpch_q1(device, seed: int, n: int = 4, reps: int = 3, rows: int = Q1_ROWS):
+    """Phase 11: Q1 at SF=10 through ``run_grouped_aggregate`` with the
+    fused route (K4) and the unfused one (K1), float32 and an int32 twin.
+    Returns (stats, K4 launches of the fused float run, K4's table row)."""
+    from dataclasses import replace
+
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.ops import columnar, relational
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather
+    from sparkucx_tpu_torch.ops.relational import AggregateSpec, build_grouped_aggregate, oracle_aggregate, run_grouped_aggregate
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid
+
+    t0 = time.perf_counter()
+    keys, mask, values, ints = q1_lineitem(seed, rows)
+    log(f"  lineitem SF=10: {rows} rows made from seed {seed} in {time.perf_counter() - t0:.1f} s; "
+        f"{int(mask.sum())} pass l_shipdate <= 1998-09-02")
+    cap = -(-rows // n)
+    conf = TpuShuffleConf(num_executors=n, exchange_fused_combine=True)
+    spec = AggregateSpec.from_conf(conf, capacity=cap, recv_capacity=64, aggs=Q1_AGGS,
+                                   dtype=np.dtype(np.float32), with_filter=True)
+    assert spec.partial and spec.combine == "auto", spec
+    devices = [device] * n
+
+    ok, ov, oc = oracle_aggregate(keys[mask], values[mask].astype(np.float64), Q1_AGGS)
+    ring_combine_grid.launches = 0
+    fused, fused_s = wall(lambda: run_grouped_aggregate(devices, spec, keys, values, mask=mask))
+    launches = ring_combine_grid.launches
+    assert launches > 0, "the fused Q1 did not run through K4"
+
+    def unfused_run(s, vals):
+        """The unfused route through the host driver: K1's launches set to 0
+        just before and read just after; its exchange's inputs kept."""
+        seen = {}
+        restore = recording(columnar, "exchange_sorted_rows", seen)
+        block_gather.launches = 0
+        try:
+            out, secs = wall(lambda: run_grouped_aggregate(devices, replace(s, combine="off"), keys, vals, mask=mask))
+        finally:
+            restore()
+        assert block_gather.launches > 0, "the unfused Q1 did not run through K1"
+        return out, secs, block_gather.launches, seen.pop("args")
+
+    unfused, unfused_s, k1_launches, k1_args = unfused_run(spec, values)
+    for name, got in (("fused", fused), ("unfused", unfused)):
+        assert np.array_equal(got[0], ok) and np.array_equal(got[2], oc), f"Q1 {name}: groups or counts differ"
+        rel = float(np.max(np.abs(got[1] - ov) / np.abs(ov)))
+        assert rel <= Q1_RTOL, f"Q1 {name}: relative error {rel} > {Q1_RTOL}"
+        secs = fused_s if name == "fused" else unfused_s
+        log(f"  Q1 float32 {name:<8} groups {got[0].tolist()} counts {got[2].tolist()}; max relative "
+            f"error vs the float64 oracle {rel:.3e} (<= {Q1_RTOL}); host driver {secs:.2f} s")
+    rel_fu = float(np.max(np.abs(fused[1] - unfused[1]) / np.abs(unfused[1])))
+    assert rel_fu <= Q1_ROUTE_RTOL, f"Q1 fused vs unfused: relative {rel_fu} > {Q1_ROUTE_RTOL}"
+    log(f"  Q1 fused vs unfused: max relative difference {rel_fu:.3e} (<= {Q1_ROUTE_RTOL}); "
+        f"K1 launches on the unfused route {k1_launches}")
+    k1_float = check_k1_columnar(device, "Q1's unfused exchange (float32 partial rows)", k1_args)
+    del k1_args
+
+    ispec = replace(spec, aggs=Q1_INT_AGGS, dtype=np.dtype(np.int32))
+    want = oracle_aggregate(keys[mask], ints[mask], Q1_INT_AGGS)
+    before = ring_combine_grid.launches
+    got_f = run_grouped_aggregate(devices, ispec, keys, ints, mask=mask)
+    assert ring_combine_grid.launches > before, "the fused int32 Q1 did not run through K4"
+    got_u, _, k1_int_launches, k1_args = unfused_run(ispec, ints)
+    for a, b, c in zip(got_f, got_u, want):
+        assert a.dtype == b.dtype == c.dtype and np.array_equal(a, b) and np.array_equal(a, c), "Q1 int32 twin differs"
+    log(f"  Q1 int32 twin (sum qty, min/max price in cents, sum discount): fused == unfused == numpy, bit for bit; "
+        f"K1 launches on the unfused route {k1_int_launches}")
+    k1_int = check_k1_columnar(device, "Q1's unfused exchange (int32 partial rows)", k1_args)
+    del k1_args
+
+    # the routes on device tensors: CUDA events, peak memory, one profile
+    spec_d = replace(spec, combine_groups=8).resolve_combine()
+    assert spec_d.combine == "dense"
+    from sparkucx_tpu_torch.ops.columnar import shard_rows_host
+
+    pk, pv, nv = shard_rows_host(keys, values, n, cap, value_dtype=np.float32)
+    pm, _, _ = shard_rows_host(mask.astype(np.uint32), np.zeros((rows, 0), np.int32), n, cap)
+    gk = torch.from_numpy(pk.astype(np.int64)).to(device)
+    gv = torch.from_numpy(pv).to(device)
+    gm = torch.from_numpy(pm.astype(bool)).to(device)
+    del pk, pv, pm
+    stats = {"rows": rows, "host_driver_fused_s": fused_s, "host_driver_unfused_s": unfused_s,
+             "rel_err_fused": float(np.max(np.abs(fused[1] - ov) / np.abs(ov))), "rel_fused_unfused": rel_fu,
+             "k4_launches": launches, "k1_launches_unfused": k1_launches,
+             "k1_launches_unfused_int": k1_int_launches, "k1_float": k1_float, "k1_int": k1_int}
+    outputs = {}
+    for name, s in (("fused", spec_d), ("unfused", replace(spec_d, combine="off"))):
+        fn = build_grouped_aggregate(devices, s)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ring_combine_grid.launches = block_gather.launches = 0
+        outputs[name] = fn(gk, gv, nv, gm)
+        torch.cuda.synchronize()
+        used = {"ring_combine_grid": ring_combine_grid.launches, "block_gather": block_gather.launches}
+        assert used["ring_combine_grid" if name == "fused" else "block_gather"] > 0, (
+            f"Q1 {name} on device tensors did not run through its kernel: {used}")
+        stats[f"{name}_device_launches"] = used
+        stats[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats[f"{name}_ms"] = time_ms(lambda: fn(gk, gv, nv, gm), reps)
+        stats[f"{name}_busy"] = profile_call(f"Q1 {name}", lambda: fn(gk, gv, nv, gm), top=8)
+        log(f"  Q1 {name:<8} on device tensors: {stats[f'{name}_ms']:.4f} ms (median of {reps}), "
+            f"peak device memory {stats[f'{name}_peak_gb']:.2f} GB, launches {used}")
+    fo, uo = outputs["fused"], outputs["unfused"]
+    again = build_grouped_aggregate(devices, spec_d)(gk, gv, nv, gm)
+    for a, b in zip(fo[:3], again[:3]):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b), "two fused Q1 runs differ"
+    for a, b in zip(fo[:3], uo[:3]):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a, b, rtol=Q1_ROUTE_RTOL, atol=0)
+        else:
+            assert torch.equal(a, b)
+    log(f"  two fused runs bit-equal; fused == unfused on device (float32 within {Q1_ROUTE_RTOL})")
+
+    # K4 at this path's shapes, recorded from one fused call
+    seen = {}
+    restore = recording(relational, "combine_axis_grid", seen)
+    try:
+        build_grouped_aggregate(devices, spec_d)(gk, gv, nv, gm)
+    finally:
+        restore()
+    del gk, gv, gm, outputs, fo, uo, again
+    torch.cuda.empty_cache()
+    row = k4_timings(device, seen.pop("args"))
+    row["launches"] = launches
+    log(f"  ring_combine_grid at Q1's shapes: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
+    return stats, launches, row
+
+
+# -- phase 12: TPC-H Q18 stage 1 at SF=1 --------------------------------------------
+
+Q18_ROWS = 6_001_215  # lineitem at SF=1
+Q18_ORDERS = 1_500_000
+
+
+def q18_lineitem(seed: int, orders: int = Q18_ORDERS, rows: int = Q18_ROWS):
+    """Q18's stage-1 input at SF=1 per TPC-H v3 §4.2.3: 1,500,000 orders with
+    dbgen's sparse keys (8 of every 32: key = (i >> 3) << 5 | (i & 7), up to
+    6,000,000), 1..7 lines each, made to sum to 6,001,215 lines, in
+    orderkey order; l_quantity in 1..50.  Returns (keys uint32, qty int32)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(1, orders + 1, dtype=np.int64)
+    orderkeys = ((i >> 3) << 5) | (i & 7)
+    lines = rng.integers(1, 8, orders)
+    diff = rows - int(lines.sum())
+    room = np.flatnonzero(lines < 7) if diff > 0 else np.flatnonzero(lines > 1)
+    lines[rng.choice(room, size=abs(diff), replace=False)] += 1 if diff > 0 else -1
+    keys = np.repeat(orderkeys, lines).astype(np.uint32)
+    qty = rng.integers(1, 51, keys.shape[0], dtype=np.int32)[:, None]
+    return keys, qty
+
+
+def tpch_q18_stage1(device, seed: int, n: int = 4, orders: int = Q18_ORDERS, rows: int = Q18_ROWS) -> dict:
+    """Phase 12: GROUP BY l_orderkey SUM(l_quantity), int32, G = 2**23 (K4's
+    global tier), fused against unfused and numpy, bit-exact; then K4 at
+    this run's shapes against its plain version, timed."""
+    from dataclasses import replace
+
+    from sparkucx_tpu_torch.ops import columnar, relational
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather
+    from sparkucx_tpu_torch.ops.relational import AggregateSpec, run_grouped_aggregate
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_tier
+
+    keys, qty = q18_lineitem(seed, orders, rows)
+    assert keys.shape[0] == rows
+    cap = -(-rows // n)
+    spec = AggregateSpec(n, cap, cap // 2, ("sum",), partial=True, combine="auto")
+    g = 1 << int(keys.max()).bit_length()
+    resolved = replace(spec, combine_groups=g).resolve_combine()
+    tier = ring_combine_tier(resolved.combine_cspec)
+    assert resolved.combine == "dense", resolved
+    if orders == Q18_ORDERS:  # SF=1: keys up to 6,000,000, the global-memory accumulator
+        assert int(keys.max()) == 6_000_000 and g == 1 << 23 and tier == "global", (g, tier)
+    uniq, inv = np.unique(keys, return_inverse=True)
+    want = (uniq, np.bincount(inv, weights=qty[:, 0]).astype(np.int32)[:, None],
+            np.bincount(inv).astype(np.int32))
+    seen = {}
+    restore = recording(relational, "combine_axis_grid", seen)
+    ring_combine_grid.launches = 0
+    try:
+        fused, fused_s = wall(lambda: run_grouped_aggregate([device] * n, spec, keys, qty))
+    finally:
+        restore()
+    launches = ring_combine_grid.launches
+    assert launches > 0, "Q18 stage 1 did not run through K4"
+    k4_args = seen.pop("args")
+    seen = {}
+    restore = recording(columnar, "exchange_sorted_rows", seen)
+    block_gather.launches = 0
+    try:
+        unfused, unfused_s = wall(lambda: run_grouped_aggregate([device] * n, replace(spec, combine="off"), keys, qty))
+    finally:
+        restore()
+    k1_launches = block_gather.launches
+    assert k1_launches > 0, "the unfused Q18 stage 1 did not run through K1"
+    for a, b, c in zip(fused, unfused, want):
+        assert np.array_equal(a, b) and np.array_equal(a, c), "Q18 stage 1: fused, unfused and numpy differ"
+    log(f"  Q18 stage 1: {rows} lines, {uniq.size} orders, keys up to {int(keys.max())}, "
+        f"G = 2**{g.bit_length() - 1} ({tier} tier): fused == unfused == numpy, bit for bit; K4 launches "
+        f"{launches}, K1 launches on the unfused route {k1_launches}; host driver fused {fused_s:.2f} s, "
+        f"unfused {unfused_s:.2f} s")
+    k1 = check_k1_columnar(device, "Q18's unfused exchange", seen.pop("args"))
+    del seen
+    torch.cuda.empty_cache()
+    row = k4_timings(device, k4_args)
+    del k4_args
+    log(f"  ring_combine_grid at Q18's shapes: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
+    return {"rows": rows, "groups": int(uniq.size), "combine_groups": g, "fused_s": fused_s,
+            "unfused_s": unfused_s, "k4_launches": launches, "k1_launches_unfused": k1_launches, "k1": k1,
+            "k4": {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shape")}}
+
+
+# -- phase 13: the superstep under exchange.impl=pallas -------------------------------
+
+
+def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, value_bytes=25000):
+    """Phase 13: GroupByTest at groupby_big's widths on four executors sharing
+    the card, ``exchange.impl=pallas`` (K2 seal, K3, K1 compaction) against
+    ``stock`` (K2 seal, K1) and ``oracle_exchange``; K2, K3 and K1 held
+    against their plain versions on the pallas run's own inputs.  Returns
+    (the pallas run's launches, K3's table row)."""
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import ShuffleBlockId
+    from sparkucx_tpu_torch.ops import ici_exchange
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_scatter, block_scatter_ref
+    from sparkucx_tpu_torch.ops.exchange import oracle_exchange
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+    from sparkucx_tpu_torch.store import hbm_store
+    from sparkucx_tpu_torch.store.hbm_store import default_peer_ranges
+    from sparkucx_tpu_torch.transport.tpu import TpuShuffleCluster
+
+    lengths, blocks = groupby_blocks(device, mappers, reducers, kv_pairs, value_bytes, SEED + 10)
+    rows = -(-lengths // ROW)
+    ranges = default_peer_ranges(reducers, n)
+    owned = [[m for m in range(mappers) if m % n == i] for i in range(n)]
+    region_rows = max(int(rows[np.ix_(owned[i], range(*ranges[j]))].sum()) for i in range(n) for j in range(n))
+    capacity = n * region_rows * ROW
+    log(f"  GroupByTest {mappers} x {reducers}, {kv_pairs} pairs/mapper, {value_bytes} B values on {n} "
+        f"executors sharing the card: {lengths.sum() / 1e9:.3f} GB payload, staging {capacity / 1e9:.3f} GB "
+        f"per executor")
+
+    def run(impl):
+        conf = TpuShuffleConf(block_alignment=ROW, staging_capacity_per_executor=capacity, device_staging=True,
+                              keep_device_recv=True, host_recv_mode="device", exchange_impl=impl)
+        cluster = TpuShuffleCluster(conf, devices=[device] * n)
+        meta = cluster.create_shuffle(3, mappers, reducers)
+        for m in range(mappers):
+            t = cluster.transport(meta.map_owner[m])
+            w = t.store.map_writer(3, m)
+            for r in range(reducers):
+                w.write_partition_device(r, blocks[m][r], length=int(lengths[m, r]))
+            t.commit_block(w.commit().pack())
+        kernels = (block_scatter, ring_exchange_grid, block_gather)
+        for k in kernels:
+            k.launches = 0
+        _, secs = wall(lambda: cluster.run_exchange(3))
+        used = {k.__name__: k.launches for k in kernels}
+        assert used["block_scatter"] > 0 and used["block_gather"] > 0, (
+            f"exchange.impl={impl}: the seal or the exchange did not run through its kernel: {used}")
+        for r in range(reducers):
+            j = meta.owner_of_reduce(r)
+            packed, entries = cluster.transport(j).fetch_blocks_device([ShuffleBlockId(3, m, r) for m in range(mappers)])
+            assert torch.equal(packed, torch.cat([blocks[m][r] for m in range(mappers)])), (
+                f"exchange.impl={impl}: reducer {r}'s fetch differs from the written blocks")
+        assert len(meta.recv_sizes) == 1, "expected one staging round"
+        shards = [meta.recv_device[0][j][: int(meta.recv_sizes[0][j].sum())] for j in range(n)]
+        return shards, meta.recv_sizes[0], secs, used
+
+    seen = {"ring": {}, "compact": {}, "seal": {}}
+    restores = [recording(ici_exchange, "ring_exchange_grid", seen["ring"]),
+                recording(ici_exchange, "compact_slots", seen["compact"]),
+                recording(hbm_store, "block_scatter", seen["seal"])]
+    try:
+        shards, sizes, secs, launches = run("pallas")
+    finally:
+        for restore in restores:
+            restore()
+    assert launches["ring_exchange_grid"] > 0, "exchange.impl=pallas did not run through K3"
+    log(f"  exchange.impl=pallas: run_exchange {secs * 1e3:.2f} ms wall, launches {launches}; "
+        "every reducer's fetch equals its written blocks")
+
+    # K2 at this run's seal (every executor's) and K1 at its compaction
+    # (every receiver's), against their plain versions
+    for i, (s, c, o, packed, dst) in enumerate(seen.pop("seal")["calls"]):
+        got = block_scatter(s, c, o, packed, torch.zeros_like(dst))
+        want = block_scatter_ref(s, c, o, packed, torch.zeros_like(dst))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"block_scatter at executor {i}'s seal: mismatch"
+        del got, want
+    out = torch.zeros_like(dst)
+    k2_ms = time_ms(lambda: block_scatter(s, c, o, packed, out), 10)
+    k2_plain = time_ms(lambda: block_scatter_ref(s, c, o, packed, out), 3)
+    k2_bound = (2 * packed.numel() * 4 + 12 * s.numel()) / HBM_BYTES_PER_S * 1e3
+    log(f"  block_scatter at the seal: every executor ({i + 1}) equal to block_scatter_ref; executor {i} "
+        f"({s.numel()} blocks, {packed.shape[0]} rows of {packed.shape[1] * 4} B): {k2_ms:.4f} ms, "
+        f"plain {k2_plain:.4f} ms, bound {k2_bound:.4f} ms")
+    del s, c, o, packed, dst, out
+    grid, csizes, cslot, crecv = seen.pop("compact")["args"]
+    plans = []
+    for j in range(n):
+        *plan, filled = ici_exchange.compact_plan(csizes, j, cslot, crecv)
+        plans.append((plan, filled))
+    k1 = check_k1(device, "the pallas superstep's compaction", grid, plans, crecv)
+    del grid, plans
+    torch.cuda.empty_cache()
+    readings = {"launches": launches, "k2_seal": {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound},
+                "k1_compaction": k1}
+
+    stock, stock_sizes, stock_secs, stock_launches = run("stock")
+    assert np.array_equal(sizes, stock_sizes)
+    for j in range(n):
+        assert torch.equal(shards[j], stock[j]), f"executor {j}: pallas and stock receive shards differ"
+    del stock
+    torch.cuda.empty_cache()
+    chunks = [[np.concatenate([blocks[m][r].cpu().numpy().reshape(-1).view(np.uint8)
+                               for m in owned[i] for r in range(*ranges[j])]) for j in range(n)]
+              for i in range(n)]
+    expected = oracle_exchange(chunks)
+    del chunks
+    for j in range(n):
+        assert shards[j].cpu().numpy().tobytes() == expected[j], f"executor {j}: receive shard differs from oracle_exchange"
+    del expected
+    log(f"  every receive shard equals exchange.impl=stock (run_exchange {stock_secs * 1e3:.2f} ms wall, "
+        f"launches {stock_launches}) and oracle_exchange")
+    del shards
+    torch.cuda.empty_cache()
+
+    n_, slot, w, steps, data = seen.pop("ring")["args"]
+    got = ring_exchange_grid(n_, slot, w, steps, data)
+    want = ring_exchange_grid_ref(n_, slot, w, steps, data)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    assert err == 0, "ring_exchange_grid at the superstep's shapes differs from its plain version"
+    del got, want
+    torch.cuda.empty_cache()
+    k_ms = time_ms(lambda: ring_exchange_grid(n_, slot, w, steps, data), 5)
+    p_ms = time_ms(lambda: ring_exchange_grid_ref(n_, slot, w, steps, data), 3)
+    lane = data.shape[1]
+    l_ms = time_ms(lambda: data.view(n_, n_, slot, lane).transpose(0, 1).contiguous(), 5)
+    row = {
+        "name": "ring_exchange_grid", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/ring_exchange.cu",
+        "replaces": "sparkucx_tpu/ops/pallas_kernels.py:573",
+        "launches": launches["ring_exchange_grid"], "max_abs_err": err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": 2 * data.numel() * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": l_ms,
+        "shape": f"n={n_}, {data.shape[0]} rows of {lane * 4} B, {len(steps)} steps, windows of {w} rows",
+    }
+    log(f"  ring_exchange_grid at the superstep's shapes: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"library {l_ms:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
+    del data, seen
+    torch.cuda.empty_cache()
+    return readings, row
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=SEED, help="seed of the TPC-H data (phases 11-12)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs one NVIDIA GPU", file=sys.stderr)
         return 2
@@ -899,8 +1534,28 @@ def main() -> int:
     shared_device_sort(device)
     sort_stats["shared_n4"] = shared_device_sort_uncut(device)
 
+    log("phase 10: K3 and K4 against their plain versions")
+    check_ring_kernels(device)
+
+    log("phase 11: TPC-H Q1 at SF=10, four executors sharing the card (GROUP BY, fused combine)")
+    q1_stats, k4_launches, k4_row = tpch_q1(device, args.seed)
+    assert k4_launches > 0, "the Q1 path did not run through K4"
+    table.append(k4_row)
+
+    log("phase 12: TPC-H Q18 stage 1 at SF=1 (G = 2**23)")
+    q18_stats = tpch_q18_stage1(device, args.seed + 1)
+    assert q18_stats["k4_launches"] > 0, "the Q18 path did not run through K4"
+
+    log("phase 13: the superstep under exchange.impl=pallas, four executors sharing the card")
+    superstep, k3_row = pallas_superstep(device)
+    assert superstep["launches"]["ring_exchange_grid"] > 0, "the pallas superstep did not run through K3"
+    table.append(k3_row)
+    log_table(table[3:])
+
     log(json.dumps({"main_path": {k: v for k, v in stats.items() if k != "launches"}}))
     log(json.dumps({"terasort": sort_stats}))
+    log(json.dumps({"groupby": {"q1_sf10": q1_stats, "q18_stage1_sf1": q18_stats}}))
+    log(json.dumps({"pallas_superstep": superstep}))
     log(card_line())
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shape"} for e in table]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

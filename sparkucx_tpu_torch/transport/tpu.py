@@ -51,6 +51,11 @@ from sparkucx_tpu_torch.core.operation import (
 from sparkucx_tpu_torch.core.transport import ExecutorId, ShuffleTransport
 from sparkucx_tpu_torch.ops.block_kernels import block_gather, plan_tensors
 from sparkucx_tpu_torch.ops.exchange import ExchangeSpec, build_exchange
+from sparkucx_tpu_torch.ops.ici_exchange import (
+    DEFAULT_CHUNKS_PER_DEST,
+    build_ici_exchange,
+    resolve_exchange_impl,
+)
 from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore, default_peer_ranges
 from sparkucx_tpu_torch.utils.devices import resolve_devices
 from sparkucx_tpu_torch.utils.trace import span
@@ -277,6 +282,7 @@ class TpuShuffleCluster:
         n = self.num_executors
         device = self.devices[0]
         keep_device = self.conf.keep_device_recv
+        impl = resolve_exchange_impl(self.conf.exchange_impl, device.type, n)
         tickets = []
         for rnd in range(num_rounds):
             sizes = np.zeros((n, n), dtype=np.int32)
@@ -291,7 +297,10 @@ class TpuShuffleCluster:
             data = pieces[0] if n == 1 else torch.cat(pieces)
             recv_rows = int(sizes.sum(axis=0).max(initial=0))
             spec = ExchangeSpec(n, send_rows, recv_rows, lane)
-            fn = build_exchange(self.devices, spec)
+            if impl == "pallas":  # the scheduled ring: K3, then K1 compacts the grid
+                fn = build_ici_exchange(self.devices, spec, chunks_per_dest=DEFAULT_CHUNKS_PER_DEST)
+            else:
+                fn = build_exchange(self.devices, spec)
             with span(
                 "exchange.collective", shuffle_id=shuffle_id, round=rnd, rows=send_rows
             ), timer.section("exchange"):

@@ -64,3 +64,41 @@ def test_sort_entry_points_default_to_cuda(monkeypatch):
         run_distributed_sort(None, SortSpec(4, 8, 8), np.zeros(4, np.uint32), np.zeros((4, 24), np.int32))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_columnar_shuffle(None, ColumnarSpec(2, 8, 8, 1))
+
+
+_GROUP_BY_MODULES = (
+    "sparkucx_tpu_torch.ops.compress",
+    "sparkucx_tpu_torch.ops.combine",
+    "sparkucx_tpu_torch.ops.ici_exchange",
+    "sparkucx_tpu_torch.ops.ring_kernels",
+    "sparkucx_tpu_torch.ops.relational",
+)
+
+
+@pytest.mark.parametrize("module", _GROUP_BY_MODULES)
+def test_group_by_modules_import_without_jax(module):
+    probe = f"import importlib, sys; importlib.import_module({module!r}); " + (
+        "print('LOADED', sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'sparkucx_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, timeout=300, check=True)
+    assert "LOADED []" in out.stdout, out.stdout + out.stderr
+
+
+def test_group_by_entry_points_default_to_cuda(monkeypatch):
+    import numpy as np
+
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+    from sparkucx_tpu_torch.ops.exchange import ExchangeSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import build_combine_exchange, build_ici_exchange
+    from sparkucx_tpu_torch.ops.relational import AggregateSpec, build_grouped_aggregate, run_grouped_aggregate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = AggregateSpec(2, 8, 8, ("sum",), partial=True, combine="dense", combine_groups=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_grouped_aggregate(None, spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_grouped_aggregate(None, spec, np.zeros(4, np.uint32), np.zeros((4, 1), np.int32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_ici_exchange(None, ExchangeSpec(2, 8, 8, 4))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_combine_exchange(None, ExchangeSpec(2, 8, 8, 3), CombineSpec(8, ("sum",)))
