@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``sparkucx_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), then runs thirteen phases; any
+process per source, all started together), then runs seventeen phases; any
 failure propagates and the exit code is non-zero:
 
 1. environment: card, power limit, versions, kernel build time;
@@ -62,7 +62,24 @@ failure propagates and the exit code is non-zero:
     ``exchange.impl=pallas`` (K2 seal, K3, then K1 compaction; every count
     set to 0 just before ``run_exchange`` and read just after) against
     ``stock`` and ``oracle_exchange``; K2, K3 and K1 held against their
-    plain versions on the run's own inputs and timed.
+    plain versions on the run's own inputs and timed;
+14. K5 (the fused send side: K2's scatter then K3's copies in one
+    cooperative launch) against its plain version, bit-equal: n in {2, 3,
+    4, 8} x chunks in {1, 2, 4}, ragged and empty blocks straddling chunk
+    windows, count-0 pads, stale staging rows no block covers, 16-byte and
+    4-byte words, a 2.29 GiB grid, two runs bit-equal;
+15. phase 13's recorded seal inputs through ``build_fused_ici_exchange`` on
+    a fresh staging (K5 then K1; counts set to 0 just before, K5 once, K2
+    and K3 never): receive shards bit-equal to phase 13's K2 -> K3 -> K1;
+    K5 against its plain version at that shape, timed beside the two-launch
+    route, the plain version, the library pair and the bound;
+16. phase 13's GroupByTest under ``slot_quota_rows`` = a quarter of the
+    slot, ``pipeline_depth=2``, stock and pallas, ``host_recv_mode=
+    'device'``: K2, K3 and K1 counted per sub-round, spliced shards equal to
+    phase 13's, every fetch equal to its written blocks; then the
+    ``memmap`` receive mode, chunked, through the ShuffleManager SPI;
+17. ``measure_ici((2, 4, 8), 8192, 128)`` (``python -m
+    sparkucx_tpu_torch.perf.benchmark ici``) on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -314,7 +331,11 @@ def main_path(device, mappers=200, reducers=200, kv_pairs=1000, value_bytes=2500
 # -- phase 4 ---------------------------------------------------------------
 
 
-def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000):
+def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000, **conf_kw):
+    """GroupByTest through the ShuffleManager SPI against a dict oracle;
+    ``conf_kw`` sets the receive mode and the plan (phase 4: ``array``, one
+    shot; phase 16: ``memmap``, chunked).  Returns the manager's cluster
+    stats report."""
     from sparkucx_tpu_torch.config import TpuShuffleConf
     from sparkucx_tpu_torch.shuffle.manager import TpuShuffleManager
     from sparkucx_tpu_torch.utils.codec import encode_records
@@ -322,7 +343,8 @@ def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000
     rng = np.random.default_rng(SEED + 1)
     oracle = {r: [] for r in range(reducers)}
     t0 = time.perf_counter()
-    with TpuShuffleManager(TpuShuffleConf(host_recv_mode="array"), devices=[device]) as mgr:
+    conf = TpuShuffleConf(**{"host_recv_mode": "array", **conf_kw})
+    with TpuShuffleManager(conf, devices=[device]) as mgr:
         mgr.register_shuffle(1, mappers, reducers)
         for m in range(mappers):
             keys = rng.integers(0, 2**31 - 1, size=kv_pairs)
@@ -344,9 +366,11 @@ def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000
             got = sorted(mgr.get_reader(1, r, r + 1).read())
             assert got == sorted(oracle[r]), f"reducer {r}: records differ from the oracle"
             records += len(got)
+        report = mgr.cluster.stats.report()
     assert records == mappers * kv_pairs
-    log(f"  GroupByTest {mappers} x {reducers}: {records} records read back equal "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(f"  GroupByTest {mappers} x {reducers} ({conf.host_recv_mode}, slot_quota_rows "
+        f"{conf.slot_quota_rows}): {records} records read back equal ({time.perf_counter() - t0:.2f} s)")
+    return report
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -758,13 +782,9 @@ def recording(module, name: str, seen: dict):
     return lambda: setattr(module, name, real)
 
 
-def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: int = 10) -> dict:
-    """K1 against its plain version on one path's own source rows and
-    per-receiver plans ``[((starts, counts, outs), rows filled), ...]``:
-    the filled rows bit-equal for every receiver; the receiver that fills
-    the most rows timed beside the plain version and the byte bound (each
-    filled row read once and written once, plus the plan).  Returns the
-    reading."""
+def hold_k1(device, label: str, src: torch.Tensor, plans, out_rows: int) -> None:
+    """K1 bit-equal to its plain version on every receiver's plan
+    ``((starts, counts, outs), rows filled)`` over one source."""
     from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_gather_ref, plan_tensors
 
     for j, (plan, filled) in enumerate(plans):
@@ -775,6 +795,65 @@ def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: 
         assert torch.equal(got[:filled].view(torch.int32), want[:filled].view(torch.int32)), (
             f"block_gather at {label}, receiver {j}: mismatch")
         del got, want
+
+
+def check_k1_calls(device, label: str, calls, reps: int = 10) -> dict:
+    """K1 against its plain version on every recorded ``block_gather(starts,
+    counts, outs, src, out_rows)`` call of one path, consecutive calls on one
+    source (an exchange's receivers) together; :func:`check_k1` times the
+    first source's.  Returns its reading."""
+    groups = []  # [src, out_rows, plans], one per source, in call order
+    for s_, c_, o_, src, out_rows in calls:
+        plan = tuple(t.cpu().numpy() for t in (s_, c_, o_))
+        filled = min(int(plan[1].sum()), out_rows)
+        if groups and groups[-1][0] is src:
+            groups[-1][2].append((plan, filled))
+        else:
+            groups.append([src, out_rows, [(plan, filled)]])
+    src, out_rows, plans = groups[0]
+    first = check_k1(device, f"{label} (the first of {len(groups)} sources)", src, plans, out_rows, reps)
+    for src, out_rows, plans in groups[1:]:
+        hold_k1(device, label, src, plans, out_rows)
+    log(f"  block_gather at {label}: all {len(calls)} recorded calls, over {len(groups)} sources, "
+        "equal to block_gather_ref")
+    return first
+
+
+def check_k3_calls(device, label: str, calls, reps: int = 5) -> dict:
+    """K3 bit-equal to its plain version on every recorded
+    ``ring_exchange_grid(n, slot, window, steps, data)`` call of one path;
+    the first timed beside its plain version, the library transpose and the
+    bound.  Returns the reading."""
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+
+    for k, args in enumerate(calls):
+        got = ring_exchange_grid(*args)
+        want = ring_exchange_grid_ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"ring_exchange_grid at {label}, call {k}: differs from its plain version"
+        del got, want
+    n, slot, w, steps, data = calls[0]
+    lane = data.shape[1]
+    k_ms = time_ms(lambda: ring_exchange_grid(*calls[0]), reps)
+    p_ms = time_ms(lambda: ring_exchange_grid_ref(*calls[0]), reps)
+    l_ms = time_ms(lambda: data.view(n, n, slot, lane).transpose(0, 1).contiguous(), reps)
+    b_ms = 2 * data.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"  ring_exchange_grid at {label}: all {len(calls)} recorded calls equal to ring_exchange_grid_ref; "
+        f"n={n}, {data.shape[0]} rows of {lane * 4} B, {len(steps)} steps, windows of {w} rows: {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms")
+    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "rows": int(data.shape[0])}
+
+
+def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: int = 10) -> dict:
+    """K1 against its plain version on one path's own source rows and
+    per-receiver plans ``[((starts, counts, outs), rows filled), ...]``:
+    the filled rows bit-equal for every receiver; the receiver that fills
+    the most rows timed beside the plain version and the byte bound (each
+    filled row read once and written once, plus the plan).  Returns the
+    reading."""
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_gather_ref, plan_tensors
+
+    hold_k1(device, label, src, plans, out_rows)
     j = max(range(len(plans)), key=lambda i: plans[i][1])
     plan, filled = plans[j]
     p, segments = plan_tensors(*plan, device), len(plan[1])
@@ -1336,7 +1415,9 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
     the card, ``exchange.impl=pallas`` (K2 seal, K3, K1 compaction) against
     ``stock`` (K2 seal, K1) and ``oracle_exchange``; K2, K3 and K1 held
     against their plain versions on the pallas run's own inputs.  Returns
-    (the pallas run's launches, K3's table row)."""
+    (the pallas run's launches, K3's table row, the state phases 15 and 16
+    start from: the written blocks, every executor's recorded seal inputs,
+    the staging geometry, the receive sizes and the checked receive shards)."""
     from sparkucx_tpu_torch.config import TpuShuffleConf
     from sparkucx_tpu_torch.core.block import ShuffleBlockId
     from sparkucx_tpu_torch.ops import ici_exchange
@@ -1399,12 +1480,15 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
 
     # K2 at this run's seal (every executor's) and K1 at its compaction
     # (every receiver's), against their plain versions
+    seal = []
     for i, (s, c, o, packed, dst) in enumerate(seen.pop("seal")["calls"]):
         got = block_scatter(s, c, o, packed, torch.zeros_like(dst))
         want = block_scatter_ref(s, c, o, packed, torch.zeros_like(dst))
         torch.cuda.synchronize()
         assert torch.equal(got, want), f"block_scatter at executor {i}'s seal: mismatch"
         del got, want
+        seal.append((s, c, o, packed))
+    staging_rows = dst.shape[0]
     out = torch.zeros_like(dst)
     k2_ms = time_ms(lambda: block_scatter(s, c, o, packed, out), 10)
     k2_plain = time_ms(lambda: block_scatter_ref(s, c, o, packed, out), 3)
@@ -1440,7 +1524,9 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
     del expected
     log(f"  every receive shard equals exchange.impl=stock (run_exchange {stock_secs * 1e3:.2f} ms wall, "
         f"launches {stock_launches}) and oracle_exchange")
-    del shards
+    readings["run_exchange_ms"] = {"pallas": secs * 1e3, "stock": stock_secs * 1e3}
+    keep = {"lengths": lengths, "blocks": blocks, "seal": seal, "staging_rows": staging_rows,
+            "capacity": capacity, "sizes": sizes, "shards": shards}
     torch.cuda.empty_cache()
 
     n_, slot, w, steps, data = seen.pop("ring")["args"]
@@ -1467,7 +1553,362 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
         f"library {l_ms:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
     del data, seen
     torch.cuda.empty_cache()
-    return readings, row
+    return readings, row, keep
+
+
+# -- phase 14: K5 against its plain version ------------------------------------------
+
+
+def fused_case(device, n, slot, lane, gen, rng, per_dest=3, fill=1.0):
+    """K5's operands made on the card: per (executor, destination) up to
+    ``per_dest`` ragged blocks (about one in five empty) placed back to back
+    from the head of the destination slot, so they straddle chunk windows;
+    count-0 pads at the packed end; a staging of random (stale) rows, most of
+    which no block covers."""
+    lens = rng.integers(0, max(1, int(fill * slot) // per_dest) + 1, size=(n, n, per_dest))
+    lens[rng.random(lens.shape) < 0.2] = 0
+    nb = n * per_dest + 3
+    starts, counts, outs = (np.zeros((n, nb), np.int32) for _ in range(3))
+    for i in range(n):
+        off, b = 0, 0
+        for j in range(n):
+            at = j * slot
+            for k in range(per_dest):
+                c = int(lens[i, j, k])
+                starts[i, b], counts[i, b], outs[i, b] = at, c, off
+                at, off, b = at + c, off + c, b + 1
+        outs[i, b:] = off
+    p_rows = max(1, int(lens.sum(axis=(1, 2)).max()))
+    plan = [torch.from_numpy(a).to(device) for a in (starts, counts, outs)]
+    packed = torch.randint(-(2**31), 2**31 - 1, (n * p_rows, lane), dtype=torch.int32, generator=gen, device=device)
+    staging = torch.randint(-(2**31), 2**31 - 1, (n * n * slot, lane), dtype=torch.int32, generator=gen, device=device)
+    return plan, packed, staging
+
+
+def check_fused_kernel(device, big=True) -> None:
+    """Phase 14: K5 against ``fused_scatter_ring_grid_ref``, bit-equal: the
+    grid and the staging it scattered in place; a second run bit-equal."""
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_ring_grid, fused_scatter_ring_grid_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 30)
+    rng = np.random.default_rng(SEED + 30)
+
+    def case(name, n, chunks, slot, lane, fill=1.0):
+        plan, packed, staging = fused_case(device, n, slot, lane, gen, rng, fill=fill)
+        steps = ring_schedule(n, chunks).raw_steps()
+        w = slot // chunks
+        ref_staging = staging.clone()
+        again_staging = staging.clone()
+        got = fused_scatter_ring_grid(n, slot, w, steps, *plan, packed, staging)
+        again = fused_scatter_ring_grid(n, slot, w, steps, *plan, packed, again_staging)
+        want = fused_scatter_ring_grid_ref(n, slot, w, steps, *plan, packed, ref_staging)
+        torch.cuda.synchronize()
+        assert torch.equal(staging, ref_staging), f"fused_scatter_ring_grid {name}: staging"
+        assert torch.equal(got, want), f"fused_scatter_ring_grid {name}: grid"
+        assert torch.equal(again, got), f"fused_scatter_ring_grid {name}: two runs differ"
+        placed = int(plan[1].sum())
+        log(f"  fused_scatter_ring_grid {name:<26} n={n} chunks={chunks} slot={slot:>7} row={lane * 4:>3} B "
+            f"blocks={plan[1].shape[1]:>3}/executor rows placed={placed:>8}  equal, two runs bit-equal")
+
+    for n in (2, 3, 4, 8):
+        for chunks in (1, 2, 4):
+            case("ragged+empty+pads+stale", n, chunks, 600 * chunks, 9)
+        case("16-byte words", n, 2, 512, 128)
+    case("half-full slots", 4, 4, 4096, 128, fill=0.5)
+    if big:
+        slot = 300_000  # 4 x 4 x 300,000 rows of 512 B = 2.46 GB grid
+        case(f"{16 * slot * 512 / 2**30:.2f} GiB grid (past 2**31 B)", 4, 2, slot, 128, fill=0.6)
+    torch.cuda.empty_cache()
+
+
+# -- phase 15: the fused send side at groupby_big's four-executor shape ------------------
+
+
+def fused_send_side(device, keep, n=4, reps=5) -> dict:
+    """Phase 15: phase 13's recorded seal inputs (every executor's plan and
+    packed blocks) through ``build_fused_ici_exchange`` on a fresh staging:
+    K5, then K1 per receiver.  Held bit-equal to phase 13's K2 -> K3 -> K1
+    receive shards; K5 launched once and K2, K3 not at all; K5 held against
+    its plain version at this shape and timed beside the two-launch route,
+    the plain version, the library pair and the bound.  Returns K5's row."""
+    from sparkucx_tpu_torch.ops import ring_kernels
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_scatter
+    from sparkucx_tpu_torch.ops.exchange import ExchangeSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import DEFAULT_CHUNKS_PER_DEST, build_fused_ici_exchange
+    from sparkucx_tpu_torch.ops.ring_kernels import (
+        fused_scatter_ring_grid, fused_scatter_ring_grid_ref, ring_exchange_grid,
+    )
+
+    seal, staging_rows = keep["seal"], keep["staging_rows"]
+    slot = staging_rows // n
+    nb = max(int(c.numel()) for _, c, _, _ in seal)
+    p_rows = max(int(pk.shape[0]) for _, _, _, pk in seal)
+    starts, counts, outs = (torch.zeros((n, nb), dtype=torch.int32, device=device) for _ in range(3))
+    packed = torch.empty((n * p_rows, LANE), dtype=torch.int32, device=device)
+    totals = []
+    for i, (s_, c_, o_, pk) in enumerate(seal):
+        b, total = int(c_.numel()), int(pk.shape[0])
+        starts[i, :b], counts[i, :b], outs[i, :b] = s_, c_, o_
+        outs[i, b:] = total  # count-0 pads at the packed end
+        packed[i * p_rows : i * p_rows + total] = pk
+        totals.append(total)
+    keep.pop("seal")
+    del seal
+    sizes = keep["sizes"]  # row j: rows receiver j got from each sender
+    spec = ExchangeSpec(n, staging_rows, staging_rows, LANE)
+    fn = build_fused_ici_exchange([device] * n, spec, nb, chunks_per_dest=DEFAULT_CHUNKS_PER_DEST)
+    steps, w = fn.schedule.raw_steps(), slot // fn.schedule.chunks
+    staging = torch.zeros((n * staging_rows, LANE), dtype=torch.int32, device=device)
+    log(f"  {n} executors, {nb} blocks / {max(totals)} packed rows of {ROW} B at most per executor, "
+        f"grid {n * staging_rows} rows ({n * staging_rows * ROW / 1e9:.2f} GB), windows of {w} rows")
+
+    kernels = (fused_scatter_ring_grid, block_scatter, ring_exchange_grid, block_gather)
+    for k in kernels:
+        k.launches = 0
+    (recv, rs), secs = wall(lambda: fn(starts, counts, outs, packed, staging, sizes.T))
+    launches = {k.__name__: k.launches for k in kernels}
+    assert (launches["fused_scatter_ring_grid"], launches["block_scatter"], launches["ring_exchange_grid"]) == (1, 0, 0), (
+        f"the fused send side launched {launches}")
+    assert np.array_equal(rs.numpy(), sizes), "fused recv_sizes differ from phase 13's"
+    for j in range(n):
+        used = int(sizes[j].sum())
+        assert torch.equal(recv[j * staging_rows : j * staging_rows + used], keep["shards"][j]), (
+            f"receiver {j}: the fused send side differs from K2 -> K3 -> K1")
+    log(f"  build_fused_ici_exchange: first call {secs * 1e3:.2f} ms wall, launches {launches}; every receive "
+        "shard bit-equal to phase 13's K2 -> K3 -> K1")
+    del recv
+    torch.cuda.empty_cache()
+
+    # K5 against its plain version at this shape, on fresh stagings
+    got = fused_scatter_ring_grid(n, slot, w, steps, starts, counts, outs, packed, torch.zeros_like(staging))
+    want = fused_scatter_ring_grid_ref(n, slot, w, steps, starts, counts, outs, packed, torch.zeros_like(staging))
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    assert err == 0, "fused_scatter_ring_grid at the fused send side's shapes differs from its plain version"
+    del got, want
+    torch.cuda.empty_cache()
+
+    k5_ms = time_ms(lambda: fused_scatter_ring_grid(n, slot, w, steps, starts, counts, outs, packed, staging), reps)
+    # the kernel alone: one launch on tables built once (no plan check, no upload)
+    launch = ring_kernels._Launch(n, slot, w, steps, staging, torch.empty_like(staging), packed=packed)
+    lib = ring_kernels._library()
+    launch_ms = time_ms(lambda: lib.fused_scatter_launch(
+        starts.data_ptr(), counts.data_ptr(), outs.data_ptr(), nb, n, launch.fused, p_rows, staging_rows,
+        launch.windows, launch.span_start, launch.num_windows, launch.span_rows, launch.row_bytes, launch.wide,
+        launch.stream), reps)
+    builder_ms = time_ms(lambda: fn(starts, counts, outs, packed, staging, sizes.T), 3)
+    shard = [(starts[i], counts[i], outs[i], packed[i * p_rows : (i + 1) * p_rows],
+              staging[i * staging_rows : (i + 1) * staging_rows]) for i in range(n)]
+
+    def two_launches():
+        for args in shard:
+            block_scatter(*args)
+        return ring_exchange_grid(n, slot, w, steps, staging)
+
+    two_ms = time_ms(two_launches, reps)
+    plain_ms = time_ms(lambda: fused_scatter_ring_grid_ref(n, slot, w, steps, starts, counts, outs, packed, staging), 1)
+    # library pair: index_copy_ of each executor's packed rows, then the
+    # sender-major transpose of the whole staging
+    idx = []
+    for i in range(n):
+        c_, s_, o_ = (t.cpu().numpy().astype(np.int64) for t in (counts[i], starts[i], outs[i]))
+        idx.append(torch.from_numpy(np.repeat(s_ - o_, c_) + np.arange(int(c_.sum()))).to(device))
+
+    def library():
+        for i in range(n):
+            shard[i][4].index_copy_(0, idx[i], shard[i][3][: totals[i]])
+        return staging.view(n, n, slot, LANE).transpose(0, 1).contiguous()
+
+    lib_ms = time_ms(library, reps)
+    # the function's bytes: each packed row read once, the grid written once,
+    # and each staging row read once (a covered one as it is written into
+    # the staging, which is written once); this two-phase design moves more,
+    # re-reading the packed rows' staging copies (2 x packed + 2 x grid)
+    grid_bytes = staging.numel() * 4
+    bound_ms = (sum(totals) * ROW + 2 * grid_bytes) / HBM_BYTES_PER_S * 1e3
+    two_phase_ms = (2 * sum(totals) * ROW + 2 * grid_bytes) / HBM_BYTES_PER_S * 1e3
+    row = {
+        "name": "fused_scatter_ring_grid", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/ring_exchange.cu",
+        "replaces": "sparkucx_tpu/ops/pallas_kernels.py:805",
+        "launches": launches["fused_scatter_ring_grid"], "max_abs_err": err,
+        "ms": k5_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": lib_ms,
+        "shape": f"n={n}, {sum(totals)} packed rows of {ROW} B in {n} x {nb} blocks, grid {staging.shape[0]} rows, "
+                 f"{len(steps)} steps, windows of {w} rows",
+    }
+    log(f"  fused_scatter_ring_grid at the fused send side's shapes: {k5_ms:.4f} ms (one launch on prebuilt tables "
+        f"{launch_ms:.4f} ms), build_fused_ici_exchange {builder_ms:.4f} ms, K2 x {n} + K3 {two_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (the two-phase design's "
+        f"bytes {two_phase_ms:.4f} ms)  [{row['shape']}]")
+    readings = {"launches": launches, "k5_ms": k5_ms, "k5_launch_ms": launch_ms, "builder_ms": builder_ms,
+                "two_launch_ms": two_ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                "two_phase_bytes_ms": two_phase_ms, "first_call_ms": secs * 1e3}
+    del starts, counts, outs, packed, staging, shard, idx, launch
+    torch.cuda.empty_cache()
+    return row, readings
+
+
+# -- phase 16: the chunked plan at groupby_big's four-executor shape -----------------------
+
+
+def chunked_plan(device, keep, n=4, mappers=200, reducers=200) -> dict:
+    """Phase 16: phase 13's GroupByTest under ``slot_quota_rows`` = a quarter
+    of the staging slot and ``pipeline_depth=2``, ``exchange.impl`` stock and
+    pallas, ``host_recv_mode='device'``: every fetched block equal to the
+    written one, every spliced receive shard equal to phase 13's (which
+    equals ``oracle_exchange``), K2, K3 and K1 counted per sub-round and the
+    ``run_exchange`` times beside phase 13's single-shot ones.  On a second
+    shuffle, recorded, K3 and K1 held against their plain versions on every
+    sub-round's inputs and timed at those shapes (recording keeps those
+    inputs alive, so this run is not the timed one); the device's busy
+    share of a third, profiled ``run_exchange``.  Then the ``memmap``
+    receive mode, chunked, through the ShuffleManager SPI at phase 4's
+    size."""
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import ShuffleBlockId
+    from sparkucx_tpu_torch.ops import exchange, ici_exchange
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_scatter
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid
+    from sparkucx_tpu_torch.transport.tpu import TpuShuffleCluster
+
+    lengths, blocks, sizes, shards = keep["lengths"], keep["blocks"], keep["sizes"], keep["shards"]
+    slot = keep["staging_rows"] // n
+    quota = slot // 4
+    out = {"slot_quota_rows": quota, "pipeline_depth": 2}
+    kernels = (block_scatter, ring_exchange_grid, block_gather)
+
+    def shuffle(cluster, sid):
+        meta = cluster.create_shuffle(sid, mappers, reducers)
+        for m in range(mappers):
+            t = cluster.transport(meta.map_owner[m])
+            w = t.store.map_writer(sid, m)
+            for r in range(reducers):
+                w.write_partition_device(r, blocks[m][r], length=int(lengths[m, r]))
+            t.commit_block(w.commit().pack())
+        return meta
+
+    for impl in ("stock", "pallas"):
+        conf = TpuShuffleConf(block_alignment=ROW, staging_capacity_per_executor=keep["capacity"], device_staging=True,
+                              keep_device_recv=True, host_recv_mode="device", exchange_impl=impl,
+                              slot_quota_rows=quota, pipeline_depth=2)
+        cluster = TpuShuffleCluster(conf, devices=[device] * n)
+        meta = shuffle(cluster, 4)
+        for k in kernels:
+            k.launches = 0
+        _, secs = wall(lambda: cluster.run_exchange(4))
+        used = {k.__name__: k.launches for k in kernels}
+        subrounds = cluster.stats.summary("exchange.pipeline.drain").ops
+        assert subrounds > 1, f"exchange.impl={impl}: the plan did not chunk"
+        want = {"block_scatter": n, "ring_exchange_grid": subrounds if impl == "pallas" else 0,
+                "block_gather": n * subrounds}
+        assert used == want, f"exchange.impl={impl}: launches {used}, expected {want} ({subrounds} sub-rounds)"
+        assert np.array_equal(meta.recv_sizes[0], sizes), f"exchange.impl={impl}: receive sizes differ"
+        for j in range(n):
+            rows = int(sizes[j].sum())
+            assert torch.equal(meta.recv_device[0][j][:rows], shards[j]), (
+                f"exchange.impl={impl}: receiver {j}'s spliced shard differs from the single-shot one")
+        for r in range(reducers):
+            j = meta.owner_of_reduce(r)
+            packed, _ = cluster.transport(j).fetch_blocks_device([ShuffleBlockId(4, m, r) for m in range(mappers)])
+            assert torch.equal(packed, torch.cat([blocks[m][r] for m in range(mappers)])), (
+                f"exchange.impl={impl}: reducer {r}'s fetch differs from the written blocks")
+        phase_ms = cluster.device_times_ms(4)
+        out[impl] = {"run_exchange_ms": secs * 1e3, "exchange_ms": phase_ms.get("exchange"),
+                     "seal_ms": phase_ms.get("seal"), "subrounds": subrounds, "launches": used}
+        log(f"  exchange.impl={impl}, slot_quota_rows={quota} (a quarter of the {slot}-row slot), depth 2: "
+            f"{subrounds} sub-rounds, run_exchange {secs * 1e3:.2f} ms wall (device: seal {phase_ms.get('seal', 0):.2f} "
+            f"ms, exchange {phase_ms.get('exchange', 0):.2f} ms), launches {used}; receive shards equal the "
+            "single-shot ones, every fetch equals its written blocks")
+        cluster.remove_shuffle(4)
+        del meta, packed
+        torch.cuda.empty_cache()
+
+        # K3 and K1 at the sub-rounds' own shapes, on a second run's recorded inputs
+        shuffle(cluster, 5)
+        seen = {"ring": {}, "k1": {}}
+        restores = [recording(ici_exchange, "ring_exchange_grid", seen["ring"]),
+                    recording(exchange if impl == "stock" else ici_exchange, "block_gather", seen["k1"])]
+        try:
+            cluster.run_exchange(5)
+        finally:
+            for restore in restores:
+                restore()
+        cluster.remove_shuffle(5)
+        label = f"the chunked plan's sub-rounds ({impl})"
+        assert len(seen["k1"]["calls"]) == n * subrounds
+        out[impl]["k1"] = check_k1_calls(device, label, seen["k1"]["calls"])
+        if impl == "pallas":
+            assert len(seen["ring"]["calls"]) == subrounds
+            out[impl]["k3"] = check_k3_calls(device, label, seen["ring"]["calls"])
+        del seen
+        torch.cuda.empty_cache()
+
+        # the device's busy share of one chunked run_exchange, on a third shuffle
+        shuffle(cluster, 6)
+        out[impl]["busy"] = profile_call(f"chunked run_exchange ({impl})", lambda: cluster.run_exchange(6), top=8)
+        cluster.remove_shuffle(6)
+        del cluster
+        torch.cuda.empty_cache()
+    report = host_route(device, host_recv_mode="memmap", slot_quota_rows=8192, pipeline_depth=2)
+    drain = [line for line in report.splitlines() if line.startswith("exchange.pipeline.drain")]
+    log(f"  memmap: {drain[0] if drain else report}")
+    return out
+
+
+# -- phase 17: the ici benchmark mode on the card -------------------------------------------
+
+
+def ici_benchmark(device, slot_rows=8192, held_width=8) -> dict:
+    """Phase 17: ``measure_ici((2, 4, 8), 8192, 128)`` (the CLI's ``-s 4m``)
+    on the card: stock against pallas per width, the fused send side at 8.
+    Then one more pass at ``held_width`` executors under recording: K1 (the
+    stock exchange and every compaction), K3 and K5 held against their plain
+    versions on that pass's own inputs, and K1 and K3 timed there."""
+    from sparkucx_tpu_torch.ops import exchange, ici_exchange
+    from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_ring_grid, fused_scatter_ring_grid_ref
+    from sparkucx_tpu_torch.perf.benchmark import measure_ici
+    from sparkucx_tpu_torch.utils.stats import StatsAggregator
+
+    stats = StatsAggregator()
+    rows = []
+    r = measure_ici((2, 4, 8), slot_rows, 128, stats=stats, device=device,
+                    report=lambda impl, n, it, dt, tot: rows.append((impl, n, dt)))
+    for n, p in sorted(r["per_n"].items()):
+        times = [dt * 1e3 for impl, m, dt in rows if m == n]
+        log(f"  n={n}: stock {p['stock_gbps']:.2f} GB/s, pallas {p['pallas_gbps']:.2f} GB/s "
+            f"({p['pallas_per_link_gbps']:.3f} GB/s aggregate / {2 * n}), {p['supersteps']} supersteps x "
+            f"{p['chunks']} chunks; bit-identical; iterations {', '.join(f'{t:.3f}' for t in times)} ms")
+    f = r["fused"]
+    log(f"  fused send side (n={f['executors']}): K5 launches {f['k5_launches']}, bit-identical to scatter-then-stock")
+    for line in stats.report().splitlines():
+        log(f"  {line}")
+
+    seen = {"stock": {}, "ring": {}, "compact": {}, "fused": {}}
+    restores = [recording(exchange, "block_gather", seen["stock"]),
+                recording(ici_exchange, "ring_exchange_grid", seen["ring"]),
+                recording(ici_exchange, "block_gather", seen["compact"]),
+                recording(ici_exchange, "fused_scatter_ring_grid", seen["fused"])]
+    try:
+        measure_ici((held_width,), slot_rows, 128, iterations=1, device=device)
+    finally:
+        for restore in restores:
+            restore()
+    label = f"the ici benchmark (n={held_width})"
+    r["held"] = {"executors": held_width,
+                 "k1_stock": check_k1_calls(device, f"{label}, stock", seen["stock"]["calls"]),
+                 "k1_compaction": check_k1_calls(device, f"{label}, compaction", seen["compact"]["calls"]),
+                 "k3": check_k3_calls(device, label, seen["ring"]["calls"])}
+    (args,) = seen["fused"]["calls"]
+    *head, staging = args  # the staging the call scattered into: scattering again changes nothing
+    got = fused_scatter_ring_grid(*head, staging.clone())
+    want = fused_scatter_ring_grid_ref(*head, staging.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"fused_scatter_ring_grid at {label}: differs from its plain version"
+    log(f"  fused_scatter_ring_grid at {label}: equal to fused_scatter_ring_grid_ref")
+    del seen, args, head, staging, got, want
+    torch.cuda.empty_cache()
+    return r
 
 
 def main() -> int:
@@ -1547,15 +1988,34 @@ def main() -> int:
     assert q18_stats["k4_launches"] > 0, "the Q18 path did not run through K4"
 
     log("phase 13: the superstep under exchange.impl=pallas, four executors sharing the card")
-    superstep, k3_row = pallas_superstep(device)
+    superstep, k3_row, keep = pallas_superstep(device)
     assert superstep["launches"]["ring_exchange_grid"] > 0, "the pallas superstep did not run through K3"
     table.append(k3_row)
     log_table(table[3:])
+
+    log("phase 14: K5 against its plain version")
+    check_fused_kernel(device)
+
+    log("phase 15: the fused send side at groupby_big's four-executor shape (build_fused_ici_exchange)")
+    k5_row, fused = fused_send_side(device, keep)
+    assert k5_row["launches"] == 1, "the fused send side did not run through K5"
+    table.append(k5_row)
+    log_table(table[-1:])
+
+    log("phase 16: the chunked plan at groupby_big's four-executor shape (slot_quota_rows, pipeline_depth=2)")
+    chunked = chunked_plan(device, keep)
+    del keep
+    torch.cuda.empty_cache()
+
+    log("phase 17: python -m sparkucx_tpu_torch.perf.benchmark ici on the card (measure_ici)")
+    ici = ici_benchmark(device)
 
     log(json.dumps({"main_path": {k: v for k, v in stats.items() if k != "launches"}}))
     log(json.dumps({"terasort": sort_stats}))
     log(json.dumps({"groupby": {"q1_sf10": q1_stats, "q18_stage1_sf1": q18_stats}}))
     log(json.dumps({"pallas_superstep": superstep}))
+    log(json.dumps({"fused_send_side": fused, "chunked_plan": chunked}))
+    log(json.dumps({"ici": {str(n): p for n, p in ici["per_n"].items()}, "ici_held": ici["held"]}))
     log(card_line())
     log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shape"} for e in table]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,13 @@ are hand-written Hopper kernels (``csrc/block_copy.cu``, wrapped by
 ``ops/block_kernels.py``); on CPU tensors their plain PyTorch versions run.
 TeraSort runs on the device too (``ops/sort.py``, with the columnar shuffle
 of ``ops/columnar.py``), sorting through the LSD radix kernel of
-``csrc/radix_sort.cu`` (wrapped by ``ops/radix.py``).
+``csrc/radix_sort.cu`` (wrapped by ``ops/radix.py``).  ``run_exchange``
+runs the plan a planner chooses (``ops/planner.py``, ``ops/skew.py``)
+through the plan executor and its round pipeline
+(``transport/executor.py``, ``transport/pipeline.py``): quota-sized
+sub-rounds for skewed shuffles, several in flight.  The scheduled ring, its
+receive-side combine and the fused send side are the kernels of
+``csrc/ring_exchange.cu`` (``ops/ring_kernels.py``).
 
 Layer map (the JAX package's, for the modules ported so far):
 
@@ -16,11 +22,13 @@ Layer map (the JAX package's, for the modules ported so far):
 L7    shuffle/manager.py                     plugin boundary (ShuffleManager SPI)
 L5    shuffle/reader.py                      reduce-side read path
 L4    shuffle/writer.py, shuffle/resolver.py map-side write path + block resolver
-L3    core/transport.py, transport/tpu.py    transport trait + the device cluster
+L3    core/transport.py, transport/*         transport trait, the device cluster, plan
+                                             executor and round pipeline
 L2    store/hbm_store.py, ops/*              staged store, exchange, block kernels,
                                              columnar shuffle, sort, radix kernel
 L1    memory/pool.py                         host bounce-buffer pool
-L0    config.py, core/*, utils/*             contracts, config, low-level utils
+L0    config.py, core/*, utils/*             contracts, config, low-level utils, stats
+--    perf/benchmark.py                      the ``ici`` benchmark mode
 ====  =====================================  =========================================
 
 Executors run on CUDA unless the caller passes ``devices=["cpu"] * n``.

@@ -11,54 +11,32 @@
 // once, so its least time is 2 * packed_rows * row_bytes over the card's memory
 // bandwidth (3.35 TB/s on an H100 SXM).  Nothing is computed on the data.
 //
-// Design: one mapping for both kernels, balanced for any skew.  The packed side is
-// contiguous (outs is the exclusive cumsum of counts), so the work is split by packed
-// rows, never by blocks: one CTA per resident slot of the card (a single persistent
-// wave) takes an equal contiguous span of packed rows.  For each sub-tile of kRows
-// rows, kRows threads binary-search the block owning their row over ends = outs +
-// counts (the inversion of _xla_gather); the search of the first sub-tile starts at
-// block 0, later ones start at the block of the previous sub-tile's last row, which
-// bounds every later row from below.  Packed row p of block b maps to
-// starts[b] + p - outs[b].  Then each warp copies whole rows with 16-byte vector loads
-// and stores (a 512 B row is one coalesced 32 x 16 B warp access), several rows in
-// flight per thread.  One huge block and forty thousand one-row blocks cost the
-// same per byte.  Zero-count blocks own no row, so count = 0 pad entries (even with
-// outs equal to the packed total), B = 0 and a total of 0 are no-ops.  A row whose
-// unpacked index falls outside the unpacked buffer is not copied, so no plan can make
-// the kernel touch memory outside its two buffers (the Python side validates plans
-// before upload; this guard keeps a bad one from faulting the context).  All address
-// math is 64-bit: byte offsets pass 2^31 at 4 M rows of 512 B.  If row_bytes is not
-// a multiple of 16 or a pointer is not 16-byte aligned, the same kernel runs on
-// 4-byte words.  The TPU kernel's DMA semaphore ring has no counterpart here; TMA
-// bulk copies and finer scheduling are later work.
+// Design: one mapping for both kernels, balanced for any skew (row_copy.cuh, shared
+// with the fused send side): one CTA per resident slot of the card (a single
+// persistent wave) takes an equal contiguous span of packed rows; each row's block is
+// found by binary search over the plan (the inversion of _xla_gather), and each warp
+// copies whole rows with 16-byte vector loads and stores (a 512 B row is one
+// coalesced 32 x 16 B warp access), several rows in flight per thread.  One huge
+// block and forty thousand one-row blocks cost the same per byte.  Zero-count blocks
+// own no row, so count = 0 pad entries (even with outs equal to the packed total),
+// B = 0 and a total of 0 are no-ops.  A row whose unpacked index falls outside the
+// unpacked buffer is not copied, so no plan can make the kernel touch memory outside
+// its two buffers (the Python side validates plans before upload; this guard keeps a
+// bad one from faulting the context).  All address math is 64-bit: byte offsets pass
+// 2^31 at 4 M rows of 512 B.  If row_bytes is not a multiple of 16 or a pointer is
+// not 16-byte aligned, the same kernel runs on 4-byte words.  The TPU kernel's DMA
+// semaphore ring has no counterpart here; TMA bulk copies and finer scheduling are
+// later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 64;  // packed rows mapped per sub-tile
-constexpr int kRowsPerWarp = kRows / kWarps;
-
-// First block in [lo, num_blocks) whose end (outs + counts) lies past packed row p,
-// or num_blocks when none does.  Requires non-decreasing ends.
-__device__ __forceinline__ int find_block(const int* __restrict__ counts,
-                                          const int* __restrict__ outs, int num_blocks,
-                                          int lo, long long p) {
-  int hi = num_blocks;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    const long long end = static_cast<long long>(__ldg(outs + mid)) + __ldg(counts + mid);
-    if (end > p) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo;
-}
+using rowcopy::kRows;
+using rowcopy::kThreads;
 
 template <typename Vec, bool kGather>
 __global__ void __launch_bounds__(kThreads)
@@ -66,54 +44,11 @@ block_copy_kernel(const int* __restrict__ starts, const int* __restrict__ counts
                   const int* __restrict__ outs, int num_blocks, const Vec* __restrict__ src,
                   Vec* __restrict__ dst, long long packed_rows, long long unpacked_rows,
                   long long vecs_per_row, long long rows_per_cta) {
-  __shared__ long long s_row[kRows];  // unpacked-side row of each packed row, -1 = none
-  __shared__ int s_cursor;
-
+  __shared__ rowcopy::Scratch sh;
   const long long cta_begin = static_cast<long long>(blockIdx.x) * rows_per_cta;
   const long long cta_end = min(cta_begin + rows_per_cta, packed_rows);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int cursor = 0;
-
-  for (long long tile = cta_begin; tile < cta_end; tile += kRows) {
-    if (threadIdx.x < kRows) {
-      const long long p = tile + threadIdx.x;
-      const int b = find_block(counts, outs, num_blocks, cursor, p);
-      long long row = -1;
-      if (p < cta_end && b < num_blocks) {
-        const long long o = __ldg(outs + b);
-        if (o <= p) row = static_cast<long long>(__ldg(starts + b)) + (p - o);
-        if (row >= unpacked_rows) row = -1;
-      }
-      s_row[threadIdx.x] = row;
-      if (threadIdx.x == kRows - 1) s_cursor = b;
-    }
-    __syncthreads();
-    cursor = s_cursor;
-
-    for (long long c = lane; c < vecs_per_row; c += 32) {
-      Vec v[kRowsPerWarp];
-#pragma unroll
-      for (int k = 0; k < kRowsPerWarp; ++k) {
-        const int r = warp + k * kWarps;
-        const long long other = s_row[r];
-        if (other >= 0) {
-          const long long from = kGather ? other : tile + r;
-          v[k] = src[from * vecs_per_row + c];
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < kRowsPerWarp; ++k) {
-        const int r = warp + k * kWarps;
-        const long long other = s_row[r];
-        if (other >= 0) {
-          const long long to = kGather ? tile + r : other;
-          dst[to * vecs_per_row + c] = v[k];
-        }
-      }
-    }
-    __syncthreads();  // s_row and s_cursor are rewritten by the next sub-tile
-  }
+  rowcopy::copy_packed_rows<Vec, kGather>(starts, counts, outs, num_blocks, src, dst, cta_begin,
+                                          cta_end, unpacked_rows, vecs_per_row, sh);
 }
 
 template <typename Vec, bool kGather>

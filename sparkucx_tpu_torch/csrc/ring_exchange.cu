@@ -1,5 +1,5 @@
-// Scheduled ring exchange (K3) and ring exchange with receive-side combine (K4)
-// for Hopper (sm_90a), for executors that share one card.
+// Scheduled ring exchange (K3), ring exchange with receive-side combine (K4) and
+// the fused send side (K5) for Hopper (sm_90a), for executors that share one card.
 //
 // Replaces the Pallas kernels of sparkucx_tpu/ops/pallas_kernels.py:
 //   * ring_copy_launch                   <- ring_exchange_grid (kernel :623, walk
@@ -12,6 +12,10 @@
 //     (kernel :720): the same grid, and every landed window of
 //     [key | payload | count] rows folded into receiver j's dense accumulator
 //     (G, width) + counts (G, 1), own slot first, then the items in step order.
+//   * fused_scatter_launch               <- fused_scatter_ring_grid (:805, kernel
+//     :850): K2's scatter of every executor's packed map-output blocks into its
+//     slot-layout staging (in place: the JAX kernel aliased staging to its second
+//     output), then K3's copies straight out of that staging, in ONE launch.
 //
 // The Python side (ops/ring_kernels.py) turns the schedule into a window table,
 // receiver-major and in that canonical order within a receiver, 5 int64 a window:
@@ -22,7 +26,27 @@
 // Bound: bytes.  K3 reads every staged row once and writes it once
 // (2 * n * n * slot * row_bytes).  K4 moves the same bytes plus its O(groups)
 // accumulator; its fold is a handful of integer or float operations per valid
-// row, far below the card's rate.
+// row, far below the card's rate.  K5's function reads every packed row, writes
+// it into the staging, reads the staging rows no block covers and writes the
+// grid: packed bytes + 2 * grid bytes.  This two-phase design moves 2 * packed +
+// 2 * grid bytes, what K2 and K3 move back to back (it reads the scattered rows
+// back out of the staging), so fusing saves a launch and none of the bytes; a
+// write-through design that stores each packed row to the staging and the grid
+// at once, never reading it back, would move the bound's bytes (later work).
+//
+// K5's design.  The TPU kernel ordered every peer's scatter before any remote
+// read with a barrier; here the two phases are separated by a grid-wide barrier
+// inside one cooperative launch (cudaLaunchCooperativeKernel), whose grid is the
+// number of CTAs that can be resident at once (occupancy x SMs), so every CTA
+// reaches the barrier.  The barrier is a counter in device memory: each CTA
+// fences its writes, adds one, and spins (volatile loads) until all of this
+// launch have arrived.
+// Phase 1 walks each executor's packed rows in equal spans per CTA with K2's
+// mapping (row_copy.cuh), through per-executor pointer tables; phase 2 walks K3's
+// spans grid-stride, reading the staging with L2-only loads (__ldcg), since rows
+// written by other SMs in phase 1 must not come from a stale L1 line.  Staging
+// rows no block covers carry into the grid unchanged; zero-count blocks are
+// no-ops.  All offsets are 64-bit.
 //
 // Design.  Every window is cut into spans of `span_rows` rows, one span per CTA
 // (a span never crosses a window); a span is walked in tiles of 256 rows: the
@@ -53,6 +77,8 @@
 #include <float.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "row_copy.cuh"
 
 namespace {
 
@@ -400,6 +426,128 @@ bool check_geometry(const FoldGeometry& g, int is_float, long long row_bytes) {
   return true;
 }
 
+// K5: everything one launch needs.
+struct FusedArgs {
+  const int* starts;  // (num_execs, num_blocks): staging row of each block
+  const int* counts;  // (num_execs, num_blocks): rows of each block
+  const int* outs;    // (num_execs, num_blocks): packed row of each block
+  int num_blocks;
+  int num_execs;
+  const uint8_t* const* packed;     // per-executor packed map output
+  long long packed_rows;            // rows of one executor's packed map output
+  uint8_t* const* staging;          // per-executor slot-layout staging (written)
+  long long staging_rows;           // rows of one executor's staging
+  const long long* windows;         // K3's window table
+  const long long* span_start;      // K3's span prefix
+  int num_windows;
+  long long span_rows;
+  uint8_t* const* grid;             // per-executor sender-major grid
+  long long row_bytes;
+  unsigned int* arrived;            // barrier counter, a multiple of the grid size at launch
+};
+
+// Copy `words` words, reading through L2 only (data written earlier in this launch).
+template <typename Word>
+__device__ __forceinline__ void copy_words_cg(const Word* src, Word* dst, long long words) {
+  long long k = threadIdx.x;
+  for (; k + 3 * kThreads < words; k += 4 * kThreads) {
+    const Word a = __ldcg(src + k), b = __ldcg(src + k + kThreads),
+               c = __ldcg(src + k + 2 * kThreads), d = __ldcg(src + k + 3 * kThreads);
+    dst[k] = a;
+    dst[k + kThreads] = b;
+    dst[k + 2 * kThreads] = c;
+    dst[k + 3 * kThreads] = d;
+  }
+  for (; k < words; k += kThreads) dst[k] = __ldcg(src + k);
+}
+
+// Every CTA of the (co-resident) grid arrives before any leaves.  The counter only
+// grows: a launch's arrivals take it from k * gridDim.x to (k + 1) * gridDim.x, so
+// launches of one grid size in stream order can reuse it without a reset.
+__device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int before = atomicAdd(arrived, 1u);
+    const unsigned int target = (before / gridDim.x + 1) * gridDim.x;
+    while (*reinterpret_cast<volatile unsigned int*>(arrived) < target) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <typename Word>
+__global__ void __launch_bounds__(kThreads) fused_scatter_ring_kernel(FusedArgs a) {
+  __shared__ rowcopy::Scratch sh;
+  const long long words_per_row = a.row_bytes / static_cast<long long>(sizeof(Word));
+
+  // phase 1: K2's scatter, executor by executor, equal packed-row spans per CTA;
+  // a packed plan's last block ends at its executor's packed total
+  for (int e = 0; e < a.num_execs; ++e) {
+    const long long last = static_cast<long long>(e) * a.num_blocks + a.num_blocks - 1;
+    const long long total =
+        a.num_blocks > 0
+            ? min(static_cast<long long>(__ldg(a.outs + last)) + __ldg(a.counts + last), a.packed_rows)
+            : 0;
+    const long long tiles = (total + rowcopy::kRows - 1) / rowcopy::kRows;
+    const long long rows_per_cta = ((tiles + gridDim.x - 1) / gridDim.x) * rowcopy::kRows;
+    const long long begin = static_cast<long long>(blockIdx.x) * rows_per_cta;
+    const long long end = min(begin + rows_per_cta, total);
+    if (begin >= end) continue;
+    const long long plan = static_cast<long long>(e) * a.num_blocks;
+    rowcopy::copy_packed_rows<Word, false>(
+        a.starts + plan, a.counts + plan, a.outs + plan, a.num_blocks,
+        reinterpret_cast<const Word*>(a.packed[e]), reinterpret_cast<Word*>(a.staging[e]), begin,
+        end, a.staging_rows, words_per_row, sh);
+  }
+
+  grid_barrier(a.arrived);
+
+  // phase 2: K3's window copies out of the staging just written
+  const long long total_spans = a.span_start[a.num_windows];
+  for (long long span = blockIdx.x; span < total_spans; span += gridDim.x) {
+    const int w = find_window(a.span_start, a.num_windows, span);
+    const long long* win = a.windows + static_cast<long long>(w) * kWindowWords;
+    const long long receiver = win[0], sender = win[1], rows = win[4];
+    const long long r0 = (span - a.span_start[w]) * a.span_rows;
+    const long long r1 = min(r0 + a.span_rows, rows);
+    const uint8_t* s = a.staging[sender] + (win[2] + r0) * a.row_bytes;
+    uint8_t* d = a.grid[receiver] + (win[3] + r0) * a.row_bytes;
+    copy_words_cg(reinterpret_cast<const Word*>(s), reinterpret_cast<Word*>(d),
+                  (r1 - r0) * words_per_row);
+  }
+}
+
+// CTAs of one cooperative K5 launch: all that can be resident at once.
+template <typename Word>
+int fused_grid_size(int* ctas) {
+  int device = 0, cooperative = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_scatter_ring_kernel<Word>,
+                                                        kThreads, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!cooperative || per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *ctas = per_sm * sms;
+  return 0;
+}
+
+template <typename Word>
+int launch_fused(FusedArgs a, cudaStream_t stream) {
+  int ctas = 0;
+  const int rc = fused_grid_size<Word>(&ctas);
+  if (rc != 0) return rc;
+  void* args[] = {&a};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(fused_scatter_ring_kernel<Word>), dim3(ctas), dim3(kThreads),
+      args, 0, stream));
+}
+
 }  // namespace
 
 extern "C" {
@@ -509,6 +657,39 @@ int ring_round_launch(int apply, const long long* windows, int num_receivers,
     else ring_round_kernel<false, float, false><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5: every executor's blocks scattered into its staging, then every window of
+// the table copied into the grids, in one cooperative launch.  `tables` holds, as
+// int64, the packed, staging and grid pointer tables (num_execs each), then the
+// barrier counter (zero, or left by earlier launches of these tables).  `wide`
+// selects 16-byte words; the caller sets it only when row_bytes and every pointer
+// are 16-byte aligned.
+int fused_scatter_launch(const int* starts, const int* counts, const int* outs, int num_blocks,
+                         int num_execs, const long long* tables, long long packed_rows,
+                         long long staging_rows, const long long* windows,
+                         const long long* span_start, int num_windows, long long span_rows,
+                         long long row_bytes, int wide, void* stream) {
+  if (num_execs <= 0 || num_windows <= 0) return 0;
+  if (row_bytes <= 0 || row_bytes % 4 != 0 || span_rows <= 0 || num_blocks < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long* ptrs = tables;
+  FusedArgs a{starts, counts, outs, num_blocks, num_execs,
+              reinterpret_cast<const uint8_t* const*>(ptrs), packed_rows,
+              reinterpret_cast<uint8_t* const*>(ptrs + num_execs), staging_rows,
+              windows, span_start, num_windows, span_rows,
+              reinterpret_cast<uint8_t* const*>(ptrs + 2 * num_execs), row_bytes,
+              reinterpret_cast<unsigned int*>(const_cast<long long*>(ptrs + 3 * num_execs))};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return wide ? launch_fused<int4>(a, s) : launch_fused<int>(a, s);
+}
+
+// CTAs a K5 launch uses on the current device (16-byte words when `wide`).
+int fused_scatter_grid_size(int wide) {
+  int ctas = 0;
+  const int rc = wide ? fused_grid_size<int4>(&ctas) : fused_grid_size<int>(&ctas);
+  return rc != 0 ? -rc : ctas;
 }
 
 int ring_max_width() { return kMaxWidth; }

@@ -31,6 +31,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sparkucx_tpu_torch.utils.devices import upload
+
 _LAUNCHER_ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # starts, counts, outs
     ctypes.c_int,  # num_blocks
@@ -58,8 +60,9 @@ def pack_plan(
 
 
 def plan_tensors(starts, counts, outs, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Validate a host plan and upload it in one ``(3, B)`` copy; returns its
-    three rows.  The plan must be packed: every non-empty block's ``outs`` is
+    """Validate a host plan and upload it in one ``(3, B)`` copy that does
+    not wait for the device (``utils/devices.upload``); returns its three
+    rows.  The plan must be packed: every non-empty block's ``outs`` is
     the exclusive cumsum of the counts before it, and ``outs + counts`` never
     decreases (zero-count pads go at the packed end), which the kernels'
     block search relies on."""
@@ -72,7 +75,7 @@ def plan_tensors(starts, counts, outs, device) -> Tuple[torch.Tensor, torch.Tens
         raise ValueError("plan is not packed: outs must be the exclusive cumsum of counts")
     if plan.size and (plan.max() >= 2**31 or (s + c).max() >= 2**31):
         raise ValueError("plan rows must fit in int32")
-    plan = torch.from_numpy(plan.astype(np.int32)).to(device)
+    plan = upload(plan.astype(np.int32), torch.device(device))
     return plan[0], plan[1], plan[2]
 
 

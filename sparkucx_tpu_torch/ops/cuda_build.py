@@ -7,8 +7,8 @@ the first launch builds, and ``build_all`` builds every source at once, one
 ``nvcc`` process per source, all started together.
 
 Libraries land in ``sparkucx_tpu_torch/_build/<hash>/`` where the hash covers
-the sources and the flags, so an edited source rebuilds and an unchanged one
-is reused.  ``nvcc`` is looked up under ``$CUDA_HOME``, then
+the sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  ``nvcc`` is looked up under ``$CUDA_HOME``, then
 ``/usr/local/cuda``, then ``PATH``.
 """
 
@@ -59,11 +59,14 @@ def nvcc_path() -> str:
 
 
 def build_dir() -> Path:
-    """``_build/<hash of every source and the flags>``."""
+    """``_build/<hash of every source, every shared header and the flags>``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in sorted(SOURCES):
         h.update(name.encode())
         h.update((CSRC_DIR / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 

@@ -10,7 +10,9 @@ pure Python) and the flat builders, for executors that share one device.
   alternate direction by chunk parity.
 * **One route**: K3 (ops/ring_kernels.py ``ring_exchange_grid``) moves
   every window of the schedule in one launch; K4 (``ring_combine_grid``)
-  folds them into the accumulator as well.  On CPU tensors these wrappers
+  folds them into the accumulator as well; K5 (``fused_scatter_ring_grid``)
+  places the packed map-output blocks into the staging first, in the same
+  launch (``build_fused_ici_exchange``, the fused send side).  On CPU tensors these wrappers
   run their plain versions.  The lowering names of the JAX package stay in
   the signatures (``resolve_ici_lowering``): ``'auto'`` and ``'dma'`` name
   the kernels; ``'xla'`` and ``'interpret'`` are accepted on CPU executors,
@@ -22,8 +24,8 @@ pure Python) and the flat builders, for executors that share one device.
 Executors that share one device ride one ring whose hops never leave the
 device, so the fabric kind is always ``'ici'``.  Executors on different
 devices need NCCL (ROADMAP queue A item 2) and raise
-``NotImplementedError``.  The hierarchical and quantized builders and the
-fused scatter + ring builder (K5) are not ported yet.
+``NotImplementedError``.  The hierarchical and quantized builders are not
+ported yet.
 
 Selection: ``spark.shuffle.tpu.exchange.impl`` = ``stock`` (default) |
 ``pallas`` (this module) | ``auto`` (``pallas`` only on a TPU, so ``stock``
@@ -43,7 +45,7 @@ from sparkucx_tpu_torch.ops.block_kernels import block_gather, plan_tensors
 from sparkucx_tpu_torch.ops.columnar import _CROSS_DEVICE
 from sparkucx_tpu_torch.ops.combine import CombineSpec, merge_accumulators
 from sparkucx_tpu_torch.ops.exchange import ExchangeSpec, build_exchange, same_device
-from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_exchange_grid
+from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_ring_grid, ring_combine_grid, ring_exchange_grid
 from sparkucx_tpu_torch.utils.devices import resolve_devices
 
 # Per-destination chunks the transports request (clamped per phase by
@@ -301,6 +303,62 @@ def build_ici_exchange(
         if received.max(initial=0) > spec.recv_rows:
             raise ValueError(f"receiver gets {int(received.max())} rows > recv_rows={spec.recv_rows}")
         grid = ring_exchange_grid(n, slot, slot // schedule.chunks, schedule.raw_steps(), data.contiguous())
+        recv = compact_slots(grid, sizes, slot, spec.recv_rows)
+        return recv, torch.from_numpy(np.ascontiguousarray(sizes.T))
+
+    exchange.spec = spec
+    exchange.schedule = schedule
+    exchange.lowering = low
+    return exchange
+
+
+def build_fused_ici_exchange(
+    devices: Optional[Sequence],
+    spec: ExchangeSpec,
+    num_blocks: int,
+    *,
+    chunks_per_dest: int = 1,
+    lowering: str = "auto",
+    schedule=None,
+    max_block_rows: Optional[int] = None,
+):
+    """The fused send side: ``fn(starts, counts, outs, packed, staging,
+    size_matrix) -> (recv, recv_sizes)`` — block scatter + scheduled exchange
+    in ONE launch (K5), then the compaction (K1, one launch per receiver).
+
+    The plan triple follows ``block_scatter``, one row per executor: ``(n,
+    num_blocks)`` int32 tensors on the executors' device, ``starts`` the
+    slot-layout destination rows in the executor's staging, ``counts`` the
+    rows, ``outs`` the packed source offsets in its packed rows (zero-count
+    blocks are no-ops).  ``packed`` is ``(n * P, lane)``, executor i's packed
+    map output at rows ``[i * P, (i + 1) * P)``; ``staging`` is ``(n *
+    send_rows, lane)``, the slot-layout staging, updated IN PLACE (the JAX
+    builder donated it), its untouched rows carried through.  The result has
+    ``build_ici_exchange``'s contract.  ``max_block_rows`` bounds the largest
+    block, as it sizes the JAX package's portable scatter window; when given,
+    a larger block raises (a check that reads the counts back to the host).
+    Executors sharing one device only, and more than one."""
+    devices = resolve_devices(devices, spec.num_executors)
+    spec.validate()
+    if spec.num_executors == 1:
+        raise ValueError("fused ici exchange needs num_executors > 1")
+    n, slot = spec.num_executors, spec.slot_rows
+    low, schedule = _flat_schedule(devices, spec, lowering, chunks_per_dest, schedule)
+
+    def exchange(starts, counts, outs, packed: torch.Tensor, staging: torch.Tensor, size_matrix):
+        if tuple(staging.shape) != (n * spec.send_rows, spec.lane):
+            raise ValueError(f"staging shape {tuple(staging.shape)} != {(n * spec.send_rows, spec.lane)}")
+        if tuple(starts.shape) != (n, num_blocks):
+            raise ValueError(f"plan shape {tuple(starts.shape)} != {(n, num_blocks)}")
+        sizes = _size_matrix(spec, size_matrix)
+        received = sizes.sum(axis=0)
+        if received.max(initial=0) > spec.recv_rows:
+            raise ValueError(f"receiver gets {int(received.max())} rows > recv_rows={spec.recv_rows}")
+        if max_block_rows is not None and num_blocks and int(counts.max()) > max(1, max_block_rows):
+            raise ValueError(f"a block of {int(counts.max())} rows exceeds max_block_rows={max_block_rows}")
+        grid = fused_scatter_ring_grid(
+            n, slot, slot // schedule.chunks, schedule.raw_steps(), starts, counts, outs, packed, staging
+        )
         recv = compact_slots(grid, sizes, slot, spec.recv_rows)
         return recv, torch.from_numpy(np.ascontiguousarray(sizes.T))
 

@@ -1,10 +1,11 @@
-"""The scheduled ring exchange (K3) and its receive-side combine (K4).
+"""The scheduled ring exchange (K3), its receive-side combine (K4) and the
+fused send side (K5).
 
 Port of the ring section of ``sparkucx_tpu/ops/pallas_kernels.py``
-(``ring_exchange_grid``, ``ring_combine_grid`` and their schedule walk
-``_ring_exchange_steps``).  On the TPU each device pushed its windows into its
-peers' memory by remote DMA, one ``(offset, chunk)`` window per ring direction
-per step.  Here every executor shares one card, so a remote window is a
+(``ring_exchange_grid``, ``ring_combine_grid``, ``fused_scatter_ring_grid``
+and their schedule walk ``_ring_exchange_steps``).  On the TPU each device
+pushed its windows into its peers' memory by remote DMA, one ``(offset,
+chunk)`` window per ring direction per step.  Here every executor shares one card, so a remote window is a
 device-local copy and one launch moves all of them.
 
 Layouts, for ``n`` executors and ``slot`` rows per destination:
@@ -14,7 +15,11 @@ Layouts, for ``n`` executors and ``slot`` rows per destination:
   receiver j starts at row ``j * slot``);
 * the grid, same shape — receiver j's is rows ``[j * n * slot, ...)``,
   sender-major: its row ``i * slot + r`` is row ``j * slot + r`` of sender
-  i's staging, the dense all-to-all's output layout.
+  i's staging, the dense all-to-all's output layout;
+* K5's packed map output ``(n * P, lane)`` — executor i's is rows
+  ``[i * P, (i + 1) * P)`` — and its plan, three ``(n, num_blocks)`` int32
+  tensors: row i holds executor i's blocks, ``starts`` local to its staging,
+  ``outs`` local to its packed rows (``block_scatter``'s contract).
 
 The schedule (``ops/ici_exchange.ring_schedule``: steps of ``(offset, chunk,
 direction)`` items) becomes a window table, receiver-major and in the
@@ -36,7 +41,9 @@ import ctypes
 import numpy as np
 import torch
 
+from sparkucx_tpu_torch.ops.block_kernels import block_scatter_ref
 from sparkucx_tpu_torch.ops.combine import CombineSpec, acc_init, combine_window
+from sparkucx_tpu_torch.utils.devices import upload
 
 #: rows one CTA copies (and folds) at most; spans never cross a window
 MAX_SPAN_ROWS = 1 << 16
@@ -138,12 +145,16 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("ring_exchange")
     span = [_P, _P, _I, _L, _L, _P, _P, _L, _I]  # windows .. row_bytes, wide
     lib.ring_copy_launch.argtypes = span + [_P]
+    lib.fused_scatter_launch.argtypes = [_P, _P, _P, _I, _I, _P, _L, _L, _P, _P, _I, _L, _L, _I, _P]
+    lib.fused_scatter_grid_size.argtypes = [_I]
+    lib.fused_scatter_grid_size.restype = ctypes.c_int
     lib.ring_fold_launch.argtypes = span + [_INTS, _I, _I, _I, _I, _I, _P, _P]
     lib.ring_merge_launch.argtypes = [_P, _I, _I, _P, _INTS, _I, _I, _I, _P, _P, _P]
     lib.ring_round_launch.argtypes = [
         _I, _P, _I, _I, _I, _P, _L, _L, _P, _P, _P, _INTS, _I, _I, _I, _I, _I, _P, _P, _P,
     ]
-    for fn in (lib.ring_copy_launch, lib.ring_fold_launch, lib.ring_merge_launch, lib.ring_round_launch):
+    for fn in (lib.ring_copy_launch, lib.ring_fold_launch, lib.ring_merge_launch, lib.ring_round_launch,
+               lib.fused_scatter_launch):
         fn.restype = ctypes.c_int
     lib.ring_max_width.restype = ctypes.c_int
     if lib.ring_max_width() != MAX_WIDTH:
@@ -170,9 +181,11 @@ def span_rows_for(total_rows: int, part_bytes: int = 0) -> int:
 
 class _Launch:
     """Device tables of one launch: the window table, its span prefix and the
-    per-executor pointer tables of the staging and the grid."""
+    per-executor pointer tables of the staging and the grid.  K5 also passes
+    ``packed``; its tables then run, as int64, packed, staging and grid
+    pointers, and a zero barrier counter (``self.fused``)."""
 
-    def __init__(self, num_devices, slot_rows, window_rows, steps, data, grid, part_bytes=0):
+    def __init__(self, num_devices, slot_rows, window_rows, steps, data, grid, part_bytes=0, packed=None):
         device = data.device
         table = ring_windows(num_devices, slot_rows, window_rows, steps)
         self.num_windows = table.shape[0]
@@ -186,13 +199,21 @@ class _Launch:
         stride = num_devices * slot_rows * self.row_bytes
         src = [data.data_ptr() + i * stride for i in range(num_devices)]
         dst = [grid.data_ptr() + i * stride for i in range(num_devices)]
-        self.wide = int(self.row_bytes % 16 == 0 and all(p % 16 == 0 for p in src + dst))
-        packed = np.concatenate([table.reshape(-1), span_start, np.asarray(src + dst, np.int64)])
-        self.tables = torch.from_numpy(packed).to(device)  # one upload
+        front, back, ptrs = [], [], src + dst
+        if packed is not None:
+            pstride = packed.shape[0] // num_devices * self.row_bytes
+            pk = [packed.data_ptr() + i * pstride for i in range(num_devices)]
+            front, back, ptrs = pk, [0], ptrs + pk
+        self.wide = int(self.row_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs))
+        packed_tables = np.concatenate([
+            table.reshape(-1), span_start, np.asarray(front + src + dst + back, np.int64),
+        ])
+        self.tables = upload(packed_tables, device)  # one upload, not waiting for the stream
         nt = table.size
         self.windows = self.tables.data_ptr()
         self.span_start = self.windows + nt * 8
-        self.src = self.span_start + span_start.size * 8
+        self.fused = self.span_start + span_start.size * 8
+        self.src = self.fused + len(front) * 8
         self.dst = self.src + num_devices * 8
         with torch.cuda.device(device):
             self.stream = torch.cuda.current_stream(device).cuda_stream
@@ -231,6 +252,86 @@ def ring_exchange_grid(
 
 
 ring_exchange_grid.launches = 0
+
+
+def _check_fused(num_devices: int, slot_rows: int, starts, counts, outs, packed, staging) -> None:
+    """K5's operand checks (types, shapes, devices).  The plan's contents are
+    ``block_scatter``'s contract, checked where a plan is built
+    (``plan_tensors``), not here: reading it back would stall the stream.
+    The kernel copies no row outside its executor's packed rows or staging."""
+    n = num_devices
+    _check_data("staging", staging, n, slot_rows)
+    if not isinstance(packed, torch.Tensor) or packed.dim() != 2 or not packed.is_contiguous():
+        raise ValueError("packed must be a contiguous (rows, lane) tensor")
+    if packed.dtype != staging.dtype or packed.shape[1] != staging.shape[1] or packed.device != staging.device:
+        raise ValueError(
+            f"packed {tuple(packed.shape)} {packed.dtype} {packed.device} must share lane width, dtype "
+            f"and device with staging {tuple(staging.shape)} {staging.dtype} {staging.device}"
+        )
+    if packed.shape[0] % n:
+        raise ValueError(f"packed has {packed.shape[0]} rows, not a multiple of {n} executors")
+    for name, t in (("starts", starts), ("counts", counts), ("outs", outs)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (num_devices, num_blocks) int32 tensor")
+        if t.shape[0] != n or t.shape != starts.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected ({n}, num_blocks) like starts")
+        if t.device != staging.device:
+            raise ValueError(f"{name} is on {t.device}, staging on {staging.device}")
+
+
+def fused_scatter_ring_grid_ref(
+    num_devices: int, slot_rows: int, window_rows: int, steps, starts, counts, outs,
+    packed: torch.Tensor, staging: torch.Tensor,
+) -> torch.Tensor:
+    """Plain version of K5: ``block_scatter_ref`` into each executor's staging,
+    in place, then ``ring_exchange_grid_ref`` out of it."""
+    n, ns, p = num_devices, num_devices * slot_rows, packed.shape[0] // num_devices
+    for i in range(n):
+        block_scatter_ref(starts[i], counts[i], outs[i], packed[i * p : (i + 1) * p], staging[i * ns : (i + 1) * ns])
+    return ring_exchange_grid_ref(n, slot_rows, window_rows, steps, staging)
+
+
+def fused_scatter_ring_grid(
+    num_devices: int, slot_rows: int, window_rows: int, steps, starts, counts, outs,
+    packed: torch.Tensor, staging: torch.Tensor,
+) -> torch.Tensor:
+    """K5, the fused send side: every executor's packed map-output blocks
+    scattered into its slot-layout staging — IN PLACE, where the JAX kernel
+    aliased the staging to its second output — then K3's schedule run
+    straight out of that staging, in one launch.  ``starts``/``counts``/
+    ``outs``: ``(n, num_blocks)`` int32 on the data's device (module
+    docstring), each row a packed plan as ``plan_tensors`` checks it;
+    ``packed``: ``(n * P, lane)``; ``staging``: ``(n * n * slot, lane)``,
+    whose rows no block covers carry into the grid unchanged.  Returns the
+    ``(n * n * slot, lane)`` sender-major grid."""
+    _check_schedule(num_devices, slot_rows, window_rows, steps)
+    _check_fused(num_devices, slot_rows, starts, counts, outs, packed, staging)
+    if staging.device.type == "cpu":
+        return fused_scatter_ring_grid_ref(
+            num_devices, slot_rows, window_rows, steps, starts, counts, outs, packed, staging
+        )
+    _check_device(staging, "fused_scatter_ring_grid")
+    grid = torch.empty_like(staging)
+    launch = _Launch(num_devices, slot_rows, window_rows, steps, staging, grid, packed=packed)
+    lib = _library()
+    _check(lib, "fused_scatter_launch", lib.fused_scatter_launch(
+        starts.data_ptr(), counts.data_ptr(), outs.data_ptr(), starts.shape[1], num_devices, launch.fused,
+        packed.shape[0] // num_devices, num_devices * slot_rows, launch.windows, launch.span_start,
+        launch.num_windows, launch.span_rows, launch.row_bytes, launch.wide, launch.stream))
+    fused_scatter_ring_grid.launches += 1
+    return grid
+
+
+fused_scatter_ring_grid.launches = 0
+
+
+def fused_scatter_grid_ctas(wide: bool = True) -> int:
+    """CTAs one cooperative K5 launch uses on the current CUDA device: all
+    that can be resident at once (occupancy x SMs)."""
+    ctas = _library().fused_scatter_grid_size(int(wide))
+    if ctas <= 0:
+        raise RuntimeError(f"no cooperative K5 launch on this device: {_library().ring_error_string(-ctas).decode()}")
+    return ctas
 
 
 def _fold_args(cspec: CombineSpec):

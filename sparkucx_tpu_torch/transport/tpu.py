@@ -1,20 +1,28 @@
 """TpuShuffleCluster / TpuShuffleTransport — the device data plane (L3b).
 
-Port of ``sparkucx_tpu/transport/tpu.py``, single-shot static plan only.
-Counterpart of ``UcxShuffleTransport`` + ``UcxWorkerWrapper``
-(UcxShuffleTransport.scala / UcxWorkerWrapper.scala), rebuilt around a bulk
-superstep instead of per-block RDMA active messages:
+Port of ``sparkucx_tpu/transport/tpu.py``.  Counterpart of
+``UcxShuffleTransport`` + ``UcxWorkerWrapper`` (UcxShuffleTransport.scala /
+UcxWorkerWrapper.scala), rebuilt around a bulk superstep instead of
+per-block RDMA active messages:
 
-* every executor stages map output into its store; ``run_exchange`` seals the
-  stores and runs one exchange per staging round, in order (the plan the JAX
-  ``StaticPlanner`` returns at ``slot_quota_rows = 0``, ops/planner.py:352-364);
-  the exchange is ops/exchange.py, a ``block_gather`` per receiver when the
-  executors share a device;
+* every executor stages map output into its store; ``run_exchange`` seals
+  the stores, asks the planner (ops/planner.py ``make_planner``) for an
+  ``ExchangePlan`` and runs it through the plan executor
+  (transport/executor.py ``execute_plan`` over transport/pipeline.py
+  ``RoundPipeline``): one exchange per staging round, or, with
+  ``conf.slot_quota_rows > 0``, quota-sized sub-rounds per staging round,
+  spliced back into the single-shot receive layout (ops/skew.py);
+  ``conf.pipeline_depth`` sub-rounds are in flight at once.  The exchange
+  is ops/exchange.py (``exchange.impl=stock``, a ``block_gather`` per
+  receiver when the executors share a device) or the scheduled ring of
+  ops/ici_exchange.py (``pallas``, K3 then K1);
 * ``fetch_blocks_by_block_ids`` afterwards is a local slice of the received
-  shard (``host_recv_mode='array'``: one asynchronous copy per shard into
-  page-locked host memory, completed through a CUDA event), or of the
-  device-resident shard (``'device'``: only the requested block leaves the
-  device);
+  shard: ``host_recv_mode='array'`` keeps one page-locked host copy per
+  shard (copied asynchronously, completed through a CUDA event on the drain
+  worker), ``'memmap'`` writes it to a disk-backed ``np.memmap`` under
+  ``conf.spill_dir`` (charged against ``spill_disk_cap_bytes``), and
+  ``'device'`` serves from the device-resident shard (only the requested
+  block leaves the device);
 * ``fetch_blocks_device`` packs requested blocks into one device buffer with
   the gather kernel — the reference's reply packing
   (UcxWorkerWrapper.scala:397-448) without the host;
@@ -23,16 +31,17 @@ superstep instead of per-block RDMA active messages:
 Single-controller topology: one cluster owns N per-executor transports
 (CommonUcxShuffleManager.scala:67-99).  ``devices`` gives each executor's
 device and may repeat one device; it defaults to CUDA for every executor.
-The pipelined and chunked executor, elastic recovery, replication and the
-``'memmap'`` receive mode are not ported yet.
+Elastic recovery and replication are not ported yet.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
 import threading
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,31 +59,27 @@ from sparkucx_tpu_torch.core.operation import (
 )
 from sparkucx_tpu_torch.core.transport import ExecutorId, ShuffleTransport
 from sparkucx_tpu_torch.ops.block_kernels import block_gather, plan_tensors
-from sparkucx_tpu_torch.ops.exchange import ExchangeSpec, build_exchange
-from sparkucx_tpu_torch.ops.ici_exchange import (
-    DEFAULT_CHUNKS_PER_DEST,
-    build_ici_exchange,
-    resolve_exchange_impl,
+from sparkucx_tpu_torch.ops.ici_exchange import resolve_exchange_impl
+from sparkucx_tpu_torch.ops.planner import PlanContext, PlanSignals, make_planner
+from sparkucx_tpu_torch.ops.skew import (
+    chunk_size_rows,
+    pad_rows_pow2,
+    piece_slices,
+    reassemble_round,
+    slice_subround,
 )
 from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore, default_peer_ranges
+from sparkucx_tpu_torch.transport.executor import (
+    build_plan_exchange,
+    execute_plan,
+    validate_host_recv_mode,
+)
 from sparkucx_tpu_torch.utils.devices import resolve_devices
-from sparkucx_tpu_torch.utils.trace import span
+from sparkucx_tpu_torch.utils.stats import StatsAggregator
+from sparkucx_tpu_torch.utils.trace import instant, span
 
-#: host_recv_mode vocabulary (config.py) and the modes this transport serves
-HOST_RECV_MODES = ("array", "memmap", "device")
-SUPPORTED_RECV_MODES = ("array", "device")
-
-
-def validate_host_recv_mode(mode: str) -> str:
-    """The ``host_recv_mode`` gate, called before any staging allocation."""
-    if mode not in HOST_RECV_MODES:
-        raise ValueError(f"unknown host_recv_mode {mode!r} (array|memmap|device)")
-    if mode not in SUPPORTED_RECV_MODES:
-        raise ValueError(
-            f"host_recv_mode {mode!r} is not supported by this transport "
-            f"({'|'.join(SUPPORTED_RECV_MODES)})"
-        )
-    return mode
+#: exchanges a cluster keeps built; the least recently used one goes first
+EXCHANGE_CACHE_SIZE = 32
 
 
 @dataclass
@@ -91,12 +96,16 @@ class _ShuffleMeta:
     #: per-peer staging region size in bytes (block-offset math)
     region_bytes: int = 0
     #: post-exchange receive state, one entry per staging round, each per
-    #: executor: host uint8 shards ('array'; None under 'device'), the (n, n)
-    #: received-size matrices (row j = rows j received from each sender), and
-    #: the device-resident shards (conf.keep_device_recv)
+    #: executor: host uint8 shards (the used prefix; plain arrays under
+    #: 'array', np.memmap views under 'memmap', None under 'device'), the
+    #: (n, n) received-size matrices (row j = rows j received from each
+    #: sender), and the device-resident shards (conf.keep_device_recv)
     recv_shards: Optional[List[List[np.ndarray]]] = None
     recv_sizes: Optional[List[np.ndarray]] = None
     recv_device: Optional[List[List[torch.Tensor]]] = None
+    #: memmap backing (path, bytes) to unlink on remove_shuffle ('memmap'),
+    #: appended from the pipeline's drain worker
+    recv_spill_paths: List[Tuple[str, int]] = field(default_factory=list)  #: guarded by the cluster's _lock
     exchanged: bool = False
     #: device-stream times of the superstep's seal and exchange phases
     timer: Optional["_StreamTimer"] = None
@@ -108,16 +117,25 @@ class _ShuffleMeta:
         raise ValueError(f"reduce_id {reduce_id} unowned")
 
 
-def _copy_to_host(shard: torch.Tensor):
-    """Start one shard's device-to-host copy into page-locked memory; returns
-    (host tensor, CUDA event marking the copy's end, or None on the CPU)."""
+def _copy_to_host(shard: torch.Tensor) -> torch.Tensor:
+    """Queue one shard's device-to-host copy into page-locked memory (the
+    shard itself on the CPU); read it only after the event that
+    :func:`_record_event` records behind it."""
     if shard.device.type != "cuda":
-        return shard, None
+        return shard
     host = torch.empty(shard.shape, dtype=shard.dtype, pin_memory=True)
     host.copy_(shard, non_blocking=True)
+    return host
+
+
+def _record_event(device: torch.device) -> Optional[torch.cuda.Event]:
+    """A CUDA event behind everything queued so far on ``device``'s current
+    stream of the calling thread, or None on the CPU."""
+    if device.type != "cuda":
+        return None
     event = torch.cuda.Event()
-    event.record(torch.cuda.current_stream(shard.device))
-    return host, event
+    event.record(torch.cuda.current_stream(device))
+    return event
 
 
 class _StreamTimer:
@@ -168,8 +186,18 @@ class TpuShuffleCluster:
         self.transports: List[TpuShuffleTransport] = [
             TpuShuffleTransport(self, eid, device=d) for eid, d in enumerate(self.devices)
         ]
+        #: the exchange planner (ops/planner.py): conf.planner_mode selects
+        #: the static mapping of the conf knobs or the adaptive one
+        self.planner = make_planner(self.conf)
         self._meta: Dict[int, _ShuffleMeta] = {}  #: guarded by self._lock
+        self._exchange_cache: Dict[Tuple[int, int, str], Callable] = {}  #: guarded by self._lock
         self._lock = threading.RLock()
+        #: per-stage pipeline and exchange timings and staging occupancy
+        self.stats = StatsAggregator()
+        #: bytes of received-shard spill on disk (host_recv_mode='memmap'),
+        #: charged against conf.spill_disk_cap_bytes; the drain worker
+        #: charges, remove_shuffle refunds
+        self._recv_spill_bytes = 0  #: guarded by self._lock
 
     # -- lookup ------------------------------------------------------------
 
@@ -223,10 +251,25 @@ class TpuShuffleCluster:
             t.store.remove_shuffle(shuffle_id)
 
     def drop_meta(self, shuffle_id: int) -> None:
-        """Forget cluster-level metadata only (the unregisterShuffle split,
-        CommonUcxShuffleManager.scala:103-106)."""
+        """Forget cluster-level metadata (the unregisterShuffle split,
+        CommonUcxShuffleManager.scala:103-106), unlinking the shuffle's
+        received-shard spill files ('memmap') and refunding their bytes."""
         with self._lock:
-            self._meta.pop(shuffle_id, None)
+            meta = self._meta.pop(shuffle_id, None)
+        if meta is None:
+            return
+        meta.recv_shards = None  # drop the memmap views before unlinking
+        with self._lock:
+            spilled = list(meta.recv_spill_paths)
+        for path, size in spilled:
+            try:
+                os.unlink(path)
+            except FileNotFoundError:
+                pass  # already gone: the bytes are not on disk
+            except OSError:
+                continue  # still on disk: keep it charged
+            with self._lock:
+                self._recv_spill_bytes -= size
 
     def commit_mapper(self, info: MapperInfo) -> None:
         """AM id 2 sink — the cluster is the 'daemon' holding the commit table."""
@@ -236,10 +279,35 @@ class TpuShuffleCluster:
 
     # -- the superstep -----------------------------------------------------
 
+    def _exchange_fn(self, send_rows: int, recv_rows: int, lowering: str):
+        """The exchange of ``send_rows`` staged rows per executor into
+        ``recv_rows`` received rows per executor under the plan's
+        ``lowering`` (resolved against the executors' device), cached by
+        (rows, resolved impl); the cache keeps the ``EXCHANGE_CACHE_SIZE``
+        most recently used."""
+        impl = resolve_exchange_impl(lowering, self.devices[0].type, self.num_executors)
+        key = (send_rows, recv_rows, impl)
+        with self._lock:
+            fn = self._exchange_cache.pop(key, None)
+            if fn is None:
+                fn = build_plan_exchange(
+                    self.devices,
+                    num_executors=self.num_executors,
+                    send_rows=send_rows,
+                    lane=self.row_bytes // 4,
+                    impl=impl,
+                    num_slices=self.conf.num_slices,
+                    recv_rows=recv_rows,
+                )
+            self._exchange_cache[key] = fn
+            while len(self._exchange_cache) > EXCHANGE_CACHE_SIZE:
+                del self._exchange_cache[next(iter(self._exchange_cache))]
+        return fn
+
     def run_exchange(self, shuffle_id: int) -> None:
-        """Seal every executor's staging and run one exchange per staging
-        round.  After this, every block is resident on its consuming executor
-        and fetches are local."""
+        """Seal every executor's staging and run the planned exchange.  After
+        this, every block is resident on its consuming executor and fetches
+        are local."""
         with span("exchange.superstep", shuffle_id=shuffle_id):
             self._run_exchange(shuffle_id)
 
@@ -258,13 +326,10 @@ class TpuShuffleCluster:
                 "host_recv_mode='device' serves fetches from the device shards — "
                 "it requires conf.keep_device_recv=true"
             )
-        if self.conf.slot_quota_rows > 0:
-            raise TransportError(
-                "slot_quota_rows > 0 needs the chunked exchange executor, which is not "
-                "ported yet (ROADMAP queue A: planner/skew/executor/pipeline)"
-            )
 
-        meta.timer = timer = _StreamTimer(self.devices[0])
+        n = self.num_executors
+        device = self.devices[0]
+        meta.timer = timer = _StreamTimer(device)
         with span("exchange.seal", shuffle_id=shuffle_id), timer.section("seal"):
             sealed = [t.store.seal(shuffle_id) for t in self.transports]
         num_rounds = max(len(s) for s in sealed)
@@ -278,55 +343,200 @@ class TpuShuffleCluster:
                         f"expected {(send_rows, lane)} — mismatched staging "
                         "geometry (stagingCapacity/blockAlignment) across executors"
                     )
+        staging_slot = send_rows // n
 
-        n = self.num_executors
-        device = self.devices[0]
+        # the plan, from the sealed size matrices only (metadata before data)
+        round_maxes = tuple(
+            max((int(np.max(s[rnd][1], initial=0)) for s in sealed if rnd < len(s)), default=0)
+            for rnd in range(num_rounds)
+        )
+        used_total = sum(int(np.sum(sr[1])) for s in sealed for sr in s)
+        signals = PlanSignals()  # no metrics registry in the port yet: a cold cluster
+        ctx = PlanContext(
+            num_executors=n,
+            staging_slot_rows=staging_slot,
+            round_max_rows=round_maxes,
+            used_rows_total=used_total,
+            row_bytes=self.row_bytes,
+            platform=device.type,
+            signals=signals,
+        )
+        plan = self.planner.plan(ctx)
+        instant(
+            "exchange.plan",
+            shuffle_id=shuffle_id,
+            planner=type(self.planner).__name__,
+            **plan.describe(),
+            **{f"signal_{k}": v for k, v in signals.describe().items()},
+        )
+        # A single-shot plan exchanges the sealed payloads as they are, at the
+        # staging slot: the JAX package pads the slot to its pow2 bucket so
+        # that one compiled executable serves nearby sizes, and the port,
+        # which compiles nothing, would only pay a relocation copy for it.
+        # A chunked plan runs quota-sized sub-rounds of plan.slot_rows.
+        q = staging_slot if plan.single_shot else plan.slot_rows
+        bucketed = q * n  # staged rows per executor per sub-round
         keep_device = self.conf.keep_device_recv
-        impl = resolve_exchange_impl(self.conf.exchange_impl, device.type, n)
-        tickets = []
-        for rnd in range(num_rounds):
-            sizes = np.zeros((n, n), dtype=np.int32)
-            pieces = []
-            for i, s in enumerate(sealed):
+
+        def _submit(rnd, chunk, nchunks):
+            """Assemble one sub-round on the device, queue its exchange and
+            the host copies of every receiver's used rows, and record the
+            event the drain waits on — all on this thread's stream."""
+            pieces, size_rows = [], []
+            for s in sealed:
                 if rnd < len(s):
                     payload, size_row = s[rnd]
-                    sizes[i] = size_row
+                    if not plan.single_shot:
+                        payload = slice_subround(payload, n, chunk, q)
                     pieces.append(payload.to(device))
+                    size_rows.append(size_row)
                 else:  # executor had fewer spill rounds: empty contribution
-                    pieces.append(torch.zeros((send_rows, lane), dtype=torch.int32, device=device))
+                    pieces.append(torch.zeros((bucketed, lane), dtype=torch.int32, device=device))
+                    size_rows.append(np.zeros(n, dtype=np.int32))
+            sub_sizes = np.stack([chunk_size_rows(sr, chunk, q) for sr in size_rows])
             data = pieces[0] if n == 1 else torch.cat(pieces)
-            recv_rows = int(sizes.sum(axis=0).max(initial=0))
-            spec = ExchangeSpec(n, send_rows, recv_rows, lane)
-            if impl == "pallas":  # the scheduled ring: K3, then K1 compacts the grid
-                fn = build_ici_exchange(self.devices, spec, chunks_per_dest=DEFAULT_CHUNKS_PER_DEST)
-            else:
-                fn = build_exchange(self.devices, spec)
+            del pieces
+            # a single-shot round receives at most what its fullest receiver
+            # gets; a sub-round keeps the worst case, one geometry per plan
+            recv_rows = int(sub_sizes.sum(axis=0).max(initial=0)) if plan.single_shot else bucketed
+            fn = self._exchange_fn(bucketed, recv_rows, plan.lowering)
             with span(
-                "exchange.collective", shuffle_id=shuffle_id, round=rnd, rows=send_rows
+                "exchange.collective", shuffle_id=shuffle_id, round=rnd, chunk=chunk, rows=bucketed
             ), timer.section("exchange"):
-                recv, recv_sizes = fn(data, sizes)
-            del data, pieces
+                recv, recv_sizes = fn(data, sub_sizes)
+            del data
+            sizes_host = recv_sizes.numpy()
             shards = [recv[j * recv_rows : (j + 1) * recv_rows] for j in range(n)]
-            host = [_copy_to_host(sh) for sh in shards] if mode == "array" else None
-            tickets.append((recv_sizes.numpy(), host, shards if keep_device else None))
+            host = None
+            if mode != "device":
+                host = [_copy_to_host(shards[j][: int(sizes_host[j].sum())]) for j in range(n)]
+            return sizes_host, host, shards if keep_device else None, _record_event(device)
 
-        meta.recv_shards = [] if mode == "array" else None
+        def _drain_chunk(rnd, chunk, nchunks, ticket):
+            """Complete one sub-round host-side (the drain worker at depth >
+            1): wait on the submit's event, then read the page-locked copies.
+            Nothing is launched here."""
+            sizes_host, host, dev_shards, event = ticket
+            if event is not None:
+                event.synchronize()
+            if host is None:
+                return sizes_host, None, dev_shards
+            with span("exchange.d2h", shuffle_id=shuffle_id, round=rnd, chunk=chunk):
+                return sizes_host, [t.numpy().reshape(-1).view(np.uint8) for t in host], dev_shards
+
+        def _finish_round(rnd, nchunks, parts):
+            """One staging round's receive state: a single-shot round passes
+            its only chunk through; a chunked round splices its sub-round
+            shards back into the single-shot layout — on the host here, and
+            for the device shards as a list of row slices per receiver that
+            the caller's thread concatenates (no launch on the drain worker).
+            Under 'memmap' the round's host shards then go to disk."""
+            if plan.single_shot:
+                logical, shards, dev = parts[0]
+            else:
+                sub_size_mats = [p[0] for p in parts]
+                logical = np.sum(sub_size_mats, axis=0).astype(np.int32)
+                shards = dev = None
+                if mode != "device":
+                    shards = [
+                        reassemble_round([p[1][j] for p in parts], [m[j] for m in sub_size_mats], self.row_bytes)
+                        for j in range(n)
+                    ]
+                if keep_device:
+                    dev = [
+                        [parts[c][2][j][start : start + rows]
+                         for c, start, rows in piece_slices([m[j] for m in sub_size_mats])]
+                        for j in range(n)
+                    ]
+            if mode == "memmap":
+                with span("exchange.d2h_memmap", shuffle_id=shuffle_id, round=rnd):
+                    shards = self._memmap_round(meta, rnd, iter(shards))
+            used = int(logical.sum())
+            return shards, logical, dev, (used, nchunks * n * bucketed - used)
+
+        results = execute_plan(
+            plan,
+            submit=_submit,
+            drain_chunk=_drain_chunk,
+            finish_round=_finish_round,
+            result_bytes=lambda r: int(r[1].sum()) * self.row_bytes,
+            # staging occupancy per round: used rows vs. the slot padding the
+            # planner's quota and chunking decisions exist to shrink
+            occupancy=lambda r: r[3],
+            stats=self.stats,
+        )
+
+        meta.recv_shards = None if mode == "device" else []
         meta.recv_sizes = []
-        for sizes_host, host, dev_shards in tickets:
-            if host is not None:
-                with span("exchange.d2h", shuffle_id=shuffle_id):
-                    parts = []
-                    for tensor, event in host:
-                        if event is not None:
-                            event.synchronize()
-                        parts.append(tensor.numpy().reshape(-1).view(np.uint8))
-                meta.recv_shards.append(parts)
+        for shards, sizes_host, dev, _occ in results:
+            if shards is not None:
+                meta.recv_shards.append(shards)
             meta.recv_sizes.append(sizes_host)
-            if dev_shards is not None:
+            active = int(np.count_nonzero(sizes_host))
+            self.stats.record_rows("exchange.lanes", active, sizes_host.size - active)
+            if dev is not None:
+                if not plan.single_shot:
+                    # pow2 rows, the JAX package's device-shard shapes
+                    dev = [
+                        pad_rows_pow2(torch.cat(p)) if p else torch.zeros((1, lane), dtype=torch.int32, device=device)
+                        for p in dev
+                    ]
                 if meta.recv_device is None:
                     meta.recv_device = []
-                meta.recv_device.append(dev_shards)
+                meta.recv_device.append(dev)
         meta.exchanged = True
+
+    def _memmap_round(self, meta: _ShuffleMeta, rnd: int, host_views):
+        """Spill one round's received shards to disk-backed mappings and
+        return read-only uint8 ``np.memmap`` views (host_recv_mode='memmap').
+
+        ``host_views`` yields one flat uint8 array per executor; a generator
+        keeps host memory at about one transient shard.  Each file is charged
+        against ``conf.spill_disk_cap_bytes`` before it is written (refunded
+        and removed if the write fails); a zero-byte shard is kept as the
+        empty array, since a zero-byte file cannot be mapped."""
+        spill_dir = self.conf.spill_dir
+        if spill_dir:
+            os.makedirs(spill_dir, exist_ok=True)
+        views = []
+        for j, host in enumerate(host_views):
+            cap = self.conf.spill_disk_cap_bytes
+            nbytes = int(host.nbytes)
+            if nbytes == 0:
+                views.append(host)
+                continue
+            with self._lock:
+                if cap and self._recv_spill_bytes + nbytes > cap:
+                    raise TransportError(
+                        f"received-shard spill would exceed spill_disk_cap_bytes "
+                        f"({self._recv_spill_bytes + nbytes} > {cap}); raise the "
+                        f"cap or use host_recv_mode='device'"
+                    )
+                self._recv_spill_bytes += nbytes
+            fd, path = tempfile.mkstemp(
+                prefix=f"sparkucx_tpu_torch_recv_s{meta.shuffle_id}_r{rnd}_e{j}_", dir=spill_dir
+            )
+            os.close(fd)
+            shape = host.shape
+            try:
+                mm = np.memmap(path, dtype=np.uint8, mode="w+", shape=shape)
+                mm[:] = host
+                mm.flush()
+            except BaseException:
+                with self._lock:
+                    self._recv_spill_bytes -= nbytes
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+                raise
+            # reopen read-only: the dirty pages are unmapped, and fetches
+            # fault in only the pages they touch
+            del mm, host
+            with self._lock:
+                meta.recv_spill_paths.append((path, nbytes))
+            views.append(np.memmap(path, dtype=np.uint8, mode="r", shape=shape))
+        return views
 
     def device_times_ms(self, shuffle_id: int) -> Dict[str, float]:
         """Device-stream milliseconds of the last superstep's ``seal`` and

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 
@@ -43,3 +44,15 @@ def resolve_devices(devices: Optional[Sequence], num_executors: Optional[int]) -
             )
         out.append(normalize_device(d))
     return out
+
+
+def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` as a tensor on ``device``.  To a CUDA device the copy goes
+    through page-locked memory, queued on the calling thread's current
+    stream, so the host does not wait for the work already queued there;
+    PyTorch's page-locked allocator keeps the staging block from reuse until
+    the copy has run.  On the CPU the tensor shares ``array``'s memory."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

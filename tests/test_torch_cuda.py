@@ -280,3 +280,149 @@ def test_pallas_superstep_on_the_card_goes_through_k3(cuda):
     for j in range(n):
         rows = int(sizes[:, j].sum())
         assert torch.equal(recv[j * n * slot : j * n * slot + rows], want[j * n * slot : j * n * slot + rows])
+
+
+# -- K5: the fused send side (csrc/ring_exchange.cu fused_scatter_launch)
+
+
+def _fused_case(device, n, slot, lane, seed, per_dest=3):
+    """Ragged blocks (some empty) back to back in each destination slot, count-0
+    pads at the packed end, and a stale staging whose uncovered rows carry."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, slot // per_dest + 1, size=(n, n, per_dest))
+    lens[rng.random(lens.shape) < 0.2] = 0
+    nb = n * per_dest + 2
+    p_rows = max(1, int(lens.sum(axis=(1, 2)).max()))
+    starts, counts, outs = (np.zeros((n, nb), np.int32) for _ in range(3))
+    for i in range(n):
+        off, b = 0, 0
+        for j in range(n):
+            at = j * slot
+            for k in range(per_dest):
+                c = int(lens[i, j, k])
+                starts[i, b], counts[i, b], outs[i, b] = at, c, off
+                at, off, b = at + c, off + c, b + 1
+        outs[i, b:] = off
+    plan = [torch.from_numpy(a).to(device) for a in (starts, counts, outs)]
+    packed = _ring_data(device, 1, p_rows * n, lane, seed=seed + 1)[: n * p_rows].contiguous()
+    staging = _ring_data(device, n, slot, lane, seed=seed + 2)
+    return plan, packed, staging
+
+
+@pytest.mark.parametrize("n,chunks", [(2, 1), (3, 2), (4, 2), (8, 4)])
+@pytest.mark.parametrize("lane", [128, 9])
+def test_fused_scatter_ring_grid_matches_plain(cuda, n, chunks, lane):
+    from sparkucx_tpu_torch.ops.block_kernels import block_scatter
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import (
+        fused_scatter_ring_grid, fused_scatter_ring_grid_ref, ring_exchange_grid,
+    )
+
+    slot = 300 * chunks
+    plan, packed, staging = _fused_case(cuda, n, slot, lane, seed=n * 7 + lane)
+    steps = ring_schedule(n, chunks).raw_steps()
+    ref_staging = staging.clone()
+    counts = [k.launches for k in (fused_scatter_ring_grid, block_scatter, ring_exchange_grid)]
+    got = fused_scatter_ring_grid(n, slot, slot // chunks, steps, *plan, packed, staging)
+    torch.cuda.synchronize()
+    assert [k.launches for k in (fused_scatter_ring_grid, block_scatter, ring_exchange_grid)] == [
+        counts[0] + 1, counts[1], counts[2]]
+    want = fused_scatter_ring_grid_ref(n, slot, slot // chunks, steps, *plan, packed, ref_staging)
+    assert torch.equal(staging, ref_staging), "the staging is scattered in place"
+    assert torch.equal(got, want)
+    again = fused_scatter_ring_grid(n, slot, slot // chunks, steps, *plan, packed, staging.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+
+
+def test_fused_scatter_cooperative_grid_is_resident(cuda):
+    from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_grid_ctas
+
+    props = torch.cuda.get_device_properties(cuda)
+    assert torch.cuda.get_device_capability(cuda) >= (9, 0)
+    for wide in (True, False):
+        ctas = fused_scatter_grid_ctas(wide)
+        # every CTA resident at once: a whole number of CTAs per SM, at most
+        # the SM's 2048 threads / 256
+        assert ctas % props.multi_processor_count == 0
+        assert 1 <= ctas // props.multi_processor_count <= 8
+
+
+@pytest.mark.parametrize("impl", ["stock", "pallas"])
+@pytest.mark.parametrize("mode", ["array", "device"])
+def test_chunked_run_exchange_on_the_card(cuda, impl, mode):
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import ShuffleBlockId
+    from sparkucx_tpu_torch.transport.tpu import TpuShuffleCluster
+
+    n, m_count, r_count = 4, 12, 8
+    conf = TpuShuffleConf(staging_capacity_per_executor=n * 8192, block_alignment=128, host_recv_mode=mode,
+                          keep_device_recv=True, slot_quota_rows=8, pipeline_depth=2, exchange_impl=impl,
+                          device_staging=True)
+    cluster = TpuShuffleCluster(conf, devices=["cuda"] * n)
+    meta = cluster.create_shuffle(0, m_count, r_count)
+    rng = np.random.default_rng(12)
+    written = {}
+    for m in range(m_count):
+        t = cluster.transport(meta.map_owner[m])
+        w = t.store.map_writer(0, m)
+        for r in range(r_count):
+            rows = int(rng.integers(10, 20)) if r == 0 else int(rng.integers(0, 3))  # reducer 0 is hot
+            block = torch.from_numpy(rng.integers(-9, 9, size=(rows, 32), dtype=np.int32)).to(cuda)
+            written[(m, r)] = block
+            w.write_partition_device(r, block, length=rows * 128)
+        t.commit_block(w.commit().pack())
+    cluster.run_exchange(0)
+    assert cluster.stats.summary("exchange.pipeline.drain").ops > 1  # chunked: several sub-rounds
+    for r in range(r_count):
+        j = meta.owner_of_reduce(r)
+        packed, entries = cluster.transport(j).fetch_blocks_device([ShuffleBlockId(0, m, r) for m in range(m_count)])
+        assert torch.equal(packed, torch.cat([written[(m, r)] for m in range(m_count)]))
+
+
+def _behind_a_busy_stream(device):
+    """Queue half a second of device work on the current stream; returns an
+    event behind it, not yet reached."""
+    torch.cuda.synchronize(device)
+    torch.cuda._sleep(int(1e9))
+    busy = torch.cuda.Event()
+    busy.record(torch.cuda.current_stream(device))
+    return busy
+
+
+def test_upload_does_not_wait_for_the_stream(cuda):
+    from sparkucx_tpu_torch.utils.devices import upload
+
+    a = np.arange(1 << 16, dtype=np.int64)
+    upload(a, cuda)  # warm the page-locked cache: its first allocation may synchronize
+    busy = _behind_a_busy_stream(cuda)
+    t = upload(a, cuda)
+    assert not busy.query(), "upload waited for the work queued before it"
+    a[:] = 0  # the page-locked staging copy was taken at the call
+    torch.cuda.synchronize(cuda)
+    assert np.array_equal(t.cpu().numpy(), np.arange(1 << 16))
+
+
+def test_kernel_tables_upload_without_waiting(cuda):
+    """K1's plan and K3's window tables go up behind queued work without the
+    host waiting for it, and the kernels still read them right."""
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+
+    n, slot, lane = 4, 64, 32
+    data = _ring_data(cuda, n, slot, lane, seed=3)
+    steps = ring_schedule(n, 2).raw_steps()
+    starts, counts, outs = _plan(4, 16, data.shape[0], 40)
+
+    def launch():
+        grid = ring_exchange_grid(n, slot, slot // 2, steps, data)
+        p = plan_tensors(starts, counts, outs, cuda)
+        return grid, p, block_gather(*p, data, int(counts.sum()))
+
+    launch()  # build the kernels and warm the page-locked cache first
+    busy = _behind_a_busy_stream(cuda)
+    grid, p, got = launch()
+    assert not busy.query(), "a table upload waited for the work queued before it"
+    torch.cuda.synchronize(cuda)
+    assert torch.equal(grid, ring_exchange_grid_ref(n, slot, slot // 2, steps, data))
+    assert torch.equal(got, block_gather_ref(*p, data, int(counts.sum())))

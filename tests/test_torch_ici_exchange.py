@@ -343,7 +343,7 @@ def test_cluster_pallas_matches_stock(mode):
 def test_cluster_auto_is_stock_off_tpu(monkeypatch):
     calls = []
     real = torch_ici.build_ici_exchange
-    monkeypatch.setattr("sparkucx_tpu_torch.transport.tpu.build_ici_exchange", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr("sparkucx_tpu_torch.transport.executor.build_ici_exchange", lambda *a, **k: calls.append(1) or real(*a, **k))
     _exchange("auto")
     assert not calls
     _exchange("pallas")

@@ -54,6 +54,19 @@ def test_explicit_cpu_devices():
         resolve_devices(["cpu"], 2)
 
 
+def test_upload_on_the_cpu_shares_the_array():
+    import numpy as np
+
+    from sparkucx_tpu_torch.utils.devices import upload
+
+    a = np.arange(12, dtype=np.int64).reshape(3, 4)
+    t = upload(a, torch.device("cpu"))
+    assert t.device.type == "cpu" and np.array_equal(t.numpy(), a)
+    a[0, 0] = 99
+    assert int(t[0, 0]) == 99
+    assert np.array_equal(upload(a[:, ::2], torch.device("cpu")).numpy(), a[:, ::2])
+
+
 def test_sort_entry_points_default_to_cuda(monkeypatch):
     import numpy as np
 
@@ -102,3 +115,34 @@ def test_group_by_entry_points_default_to_cuda(monkeypatch):
         build_ici_exchange(None, ExchangeSpec(2, 8, 8, 4))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_combine_exchange(None, ExchangeSpec(2, 8, 8, 3), CombineSpec(8, ("sum",)))
+
+
+_PLAN_ENGINE_MODULES = (
+    "sparkucx_tpu_torch.ops.skew",
+    "sparkucx_tpu_torch.ops.planner",
+    "sparkucx_tpu_torch.transport.pipeline",
+    "sparkucx_tpu_torch.transport.executor",
+    "sparkucx_tpu_torch.utils.stats",
+    "sparkucx_tpu_torch.perf.benchmark",
+)
+
+
+@pytest.mark.parametrize("module", _PLAN_ENGINE_MODULES)
+def test_plan_engine_modules_import_without_jax(module):
+    probe = f"import importlib, sys; importlib.import_module({module!r}); " + (
+        "print('LOADED', sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'sparkucx_tpu')))"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, timeout=300, check=True)
+    assert "LOADED []" in out.stdout, out.stdout + out.stderr
+
+
+def test_fused_send_side_and_benchmark_default_to_cuda(monkeypatch):
+    from sparkucx_tpu_torch.ops.exchange import ExchangeSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import build_fused_ici_exchange
+    from sparkucx_tpu_torch.perf.benchmark import measure_ici
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_fused_ici_exchange(None, ExchangeSpec(2, 8, 8, 4), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        measure_ici((2,), 8, 4)
