@@ -10,11 +10,11 @@ failure propagates and the exit code is non-zero:
 2. each kernel against its plain PyTorch version, bit-exact: K1 and K2 on
    ragged plans (empty blocks, count=0 pads at the packed end, 1-row blocks,
    one block covering the whole source, a source above 2**31 bytes, a row
-   width off the 16-byte path); K6 (the radix pass) on N = 0, 1, 2, one whole
-   tile and one row past it, a last tile that ends inside a 256-row chunk,
-   all-equal keys, keys 0xFFFFFFFF, keys >= 2**31, three keys over 1M rows
-   with payload = row id (stability), float32 rows, widths 1, 2 and 25, and
-   a 2.2 GB buffer past 2**31 bytes;
+   width off the 16-byte path); K6 (the radix sort, and its one-digit pass
+   on every digit) on N = 0, 1, 2, one whole tile and one row past it, a
+   partial last tile, all-equal keys, keys 0xFFFFFFFF, keys >= 2**31, three
+   keys over 1M rows with payload = row id (stability), float32 rows, widths
+   1, 2 and 25, and a 2.2 GB buffer past 2**31 bytes;
 3. the shuffle main path at full width on the device route — GroupByTest's
    big gate (200 mappers x 200 reducers, 25,000-byte values; numKVPairs cut
    from 5000 to 1000, about 5 GB of shuffle): blocks made on the card from a
@@ -27,12 +27,14 @@ failure propagates and the exit code is non-zero:
 5. a 4-executor cluster sharing the card against ``oracle_exchange``;
 6. each kernel's time at its main path's shapes beside its plain version, one
    PyTorch library call on the same work, and its memory-bandwidth bound (K6:
-   the whole sort of the TeraSort rows, and one pass);
+   the whole sort of the TeraSort rows, split by step: the counts, each of
+   the four pair passes, the row permutation);
 7. the TeraSort main path: 100,000,000 rows of 100 B (10 GB, the reference's
    "TeraSort 10GB") made on the card, sorted by ``build_distributed_sort``
-   with ``impl='radix'`` (K6's launch count set to 0 before and read after),
-   held bit for bit against ``torch.sort(stable=True)`` + ``index_select``,
-   then ``radix`` and ``single`` timed on the same data;
+   with ``impl='radix'`` (K6's launch count set to 0 before and read after:
+   one sort, one launch count), held bit for bit against
+   ``torch.sort(stable=True)`` + ``index_select``, then ``radix`` and
+   ``single`` timed on the same data, each with a profiler summary;
 8. the host drivers: ``run_distributed_sort`` (n=1, radix, 1M rows) and
    ``run_external_sort`` (three batches) against ``oracle_sort``;
 9. the sample sort with four executors sharing the card, exchange through K1
@@ -43,7 +45,8 @@ failure propagates and the exit code is non-zero:
    ``build_distributed_sort`` on the uncut 10 GB made on the card, checked
    and timed, with its peak device memory;
 10. K3 (ring exchange) and K4 (ring combine) against their plain versions,
-    bit-equal: n in {2, 3, 4, 8}, chunks in {1, 2, 4}, G = 1, 8, 64 and 2**20
+    bit-equal: n in {2, 3, 4, 8} and K3's executor limit, chunks in {1, 2, 4},
+    a staging view off the 16-byte alignment, G = 1, 8, 64 and 2**20
     (K4's accumulator in device memory), duplicate keys, keys >= 2**31,
     int8 and blockfloat payloads, all-padding windows, grids past 2**31
     bytes, K4 twice and compared bit for bit;
@@ -62,7 +65,9 @@ failure propagates and the exit code is non-zero:
     ``exchange.impl=pallas`` (K2 seal, K3, then K1 compaction; every count
     set to 0 just before ``run_exchange`` and read just after) against
     ``stock`` and ``oracle_exchange``; K2, K3 and K1 held against their
-    plain versions on the run's own inputs and timed;
+    plain versions on the run's own inputs and timed (K3 through its
+    wrapper and as its launch alone, beside one contiguous copy of the same
+    bytes);
 14. K5 (the fused send side: K2's scatter then K3's copies in one
     cooperative launch) against its plain version, bit-equal: n in {2, 3,
     4, 8} x chunks in {1, 2, 4}, ragged and empty blocks straddling chunk
@@ -76,7 +81,8 @@ failure propagates and the exit code is non-zero:
 16. phase 13's GroupByTest under ``slot_quota_rows`` = a quarter of the
     slot, ``pipeline_depth=2``, stock and pallas, ``host_recv_mode=
     'device'``: K2, K3 and K1 counted per sub-round, spliced shards equal to
-    phase 13's, every fetch equal to its written blocks; then the
+    phase 13's, every fetch equal to its written blocks, the timed run
+    repeated twice with the caching allocator's counts; then the
     ``memmap`` receive mode, chunked, through the ShuffleManager SPI;
 17. ``measure_ici((2, 4, 8), 8192, 128)`` (``python -m
     sparkucx_tpu_torch.perf.benchmark ici``) on the card.
@@ -134,6 +140,26 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def time_rounds(fns: dict, reps: int) -> dict:
+    """Device milliseconds of each of ``fns`` between CUDA events, after one
+    warm-up each, in ``reps`` rounds that run every function once: a slow
+    spell of the card falls on all of them alike.  Returns each name's times
+    in round order."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return times
+
+
 def wall(fn):
     """(result, seconds) of ``fn`` on the host clock, ending synchronized."""
     torch.cuda.synchronize()
@@ -141,6 +167,13 @@ def wall(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def alloc_counters() -> dict:
+    """The caching allocator's device allocations, frees and out-of-memory
+    retries (each frees the cache and synchronizes) so far."""
+    st = torch.cuda.memory_stats()
+    return {k: st.get(k, 0) for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -535,11 +568,9 @@ def log_table(table) -> None:
 
 def radix_sort_plain(rows: torch.Tensor) -> torch.Tensor:
     """The whole sort through K6's plain version, pass by pass."""
-    from sparkucx_tpu_torch.ops.radix import BITS, NUM_PASSES, radix_pass_ref
+    from sparkucx_tpu_torch.ops.radix import radix_sort_rows_ref
 
-    for p in range(NUM_PASSES):
-        rows = radix_pass_ref(rows, p * BITS)
-    return rows
+    return radix_sort_rows_ref(rows)
 
 
 def library_sort_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -560,8 +591,9 @@ def terasort_data(device, n: int, seed: int = SEED + 6):
 
 
 def check_radix(device, big_rows: int = 22_000_000, stable_rows: int = 1_000_000) -> None:
-    """Phase 2, K6: the kernel against its plain version, bit-equal, on the
-    edge cases; ``big_rows`` rows of 100 B make a buffer past 2**31 bytes."""
+    """Phase 2, K6: the sort and its one-digit pass against their plain
+    versions, bit-equal, on the edge cases; ``big_rows`` rows of 100 B make a
+    buffer past 2**31 bytes."""
     from sparkucx_tpu_torch.ops.radix import BITS, NUM_PASSES, TILE_ROWS, radix_pass, radix_pass_ref, radix_sort_rows
 
     gen = torch.Generator(device=device)
@@ -580,14 +612,14 @@ def check_radix(device, big_rows: int = 22_000_000, stable_rows: int = 1_000_000
                 assert torch.equal(radix_pass(rows, p * BITS), radix_pass_ref(rows, p * BITS)), (
                     f"radix pass {p} {name}: mismatch")
         tiles = -(-rows.shape[0] // TILE_ROWS)
-        log(f"  radix_pass    {name:<34} rows={rows.shape[0]:>9} words={rows.shape[1]:>2} tiles={tiles:>5}  equal")
+        log(f"  radix_sort_rows {name:<32} rows={rows.shape[0]:>9} words={rows.shape[1]:>2} tiles={tiles:>5}  equal")
         return got
 
     for n in (0, 1, 2):
         case(f"N={n}", rand_rows(n, 25), passes=True)
     case("one whole tile, every pass", rand_rows(TILE_ROWS, 25), passes=True)
     case("one row past a tile, every pass", rand_rows(TILE_ROWS + 1, 25), passes=True)
-    # the last tile holds 1001 rows: it ends inside the kernel's 256-row chunk
+    # the last tile holds 1001 rows: its warps' key rounds end part-way
     case("N off the tile, every pass", rand_rows(3 * TILE_ROWS + 1001, 25), passes=True)
     for value in (7, -1):  # -1 is the key 0xFFFFFFFF
         rows = rand_rows(50_000, 25)
@@ -612,8 +644,10 @@ def check_radix(device, big_rows: int = 22_000_000, stable_rows: int = 1_000_000
 
 
 def radix_timings(device, n: int):
-    """K6 at the TeraSort shape: the whole sort (NUM_PASSES launches) and one
-    pass, beside the plain version, the library sort and the bandwidth bound."""
+    """K6 at the TeraSort shape: the whole sort beside the plain version, the
+    library sort and the bound, and split by step (zeroing the counts and
+    look-back state, the counts, each pass, the permutation): each step's
+    time is the difference of two runs of the steps up to it."""
     from sparkucx_tpu_torch.ops import radix
     from sparkucx_tpu_torch.ops.radix import NUM_PASSES, radix_pass, radix_sort_rows
     from sparkucx_tpu_torch.ops.sort import key_bits
@@ -627,43 +661,60 @@ def radix_timings(device, n: int):
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     assert err == 0, "radix sort at the TeraSort shape differs from its plain version"
+    del want
     lib = library_sort_rows(rows)
     assert torch.equal(got, lib), "radix sort at the TeraSort shape differs from the library sort"
-    del got, want, lib
+    del lib
     torch.cuda.empty_cache()
     k_ms = time_ms(lambda: radix_sort_rows(rows), 5)
+
     out = torch.empty_like(rows)
-    pass_ms = time_ms(lambda: radix_pass(rows, 0, out=out), 5)
-    # one pass split into its steps: histogram kernel, dests (one torch
-    # cumsum), scatter kernel
-    hist = radix._histogram(rows, 0)
-    dests = radix.pass_dests(hist)
-    hist_ms = time_ms(lambda: radix._histogram(rows, 0), 5)
-    dests_ms = time_ms(lambda: radix.pass_dests(hist), 5)
-    scatter_ms = time_ms(lambda: radix._scatter(rows, 0, dests, out), 5)
-    log(f"  radix_pass one pass, by step: histogram {hist_ms:.4f} ms, dests {dests_ms:.4f} ms, "
-        f"scatter {scatter_ms:.4f} ms (bound {2 * n * row_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-    del out, hist, dests
+    with torch.cuda.device(device):
+        sort = radix._Sort(rows, 0, NUM_PASSES)
+    steps = [("zero state", sort.reset), ("counts", sort.count)]
+    steps += [(f"pass {p}", lambda p=p: sort.sweep(p)) for p in range(NUM_PASSES)]
+    steps += [("permutation", lambda: sort.permute(out))]
+
+    def first(k):
+        for _, step in steps[:k]:
+            step()
+
+    cum = [time_ms(lambda k=k: first(k), 5) for k in range(1, len(steps) + 1)]
+    split = {name: cum[i] - (cum[i - 1] if i else 0.0) for i, (name, _) in enumerate(steps)}
+    torch.cuda.synchronize()
+    assert torch.equal(out, got), "the sort run step by step differs from radix_sort_rows"
+    del out, got, sort
     torch.cuda.empty_cache()
+    pass_ms = time_ms(lambda: radix_pass(rows, 0), 5)
     p_ms = time_ms(lambda: radix_sort_plain(rows), 2)
     torch.cuda.empty_cache()
     l_ms = time_ms(lambda: library_sort_rows(rows), 5)
-    pass_bytes = 2 * n * row_bytes + 4 * n
-    bound_ms = NUM_PASSES * pass_bytes / HBM_BYTES_PER_S * 1e3
-    floor_ms = 2 * n * row_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  radix_pass one pass: {pass_ms:.4f} ms, bound {pass_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
-        f"({pass_bytes / pass_ms / 1e6:.1f} GB/s); one-pass floor of any sort "
-        f"2 x N x {row_bytes} B / BW = {floor_ms:.4f} ms")
-    log(f"  radix sort {NUM_PASSES} passes: {k_ms:.4f} ms = {n / k_ms / 1e3:.1f} M rows/s "
-        f"({n * row_bytes / k_ms / 1e6:.1f} GB/s of rows sorted)")
+    # the function's bytes: every row read once and written once
+    bound_ms = 2 * n * row_bytes / HBM_BYTES_PER_S * 1e3
+    # this design's bytes: key sectors read and keys written; pairs through the
+    # passes (the first reads keys only, the last writes row numbers only); the
+    # row numbers, each row's sectors (4-byte aligned) read and the row written
+    sectors = -(-(row_bytes + 28) // 32) if row_bytes % 32 else row_bytes // 32
+    design = (36 * n + 12 * n + 16 * n * (NUM_PASSES - 2) + 12 * n
+              + 4 * n + 32 * sectors * n + row_bytes * n)
+    # the first design's: NUM_PASSES passes, each reading the key word and
+    # reading and writing every whole row
+    first_ms = NUM_PASSES * (2 * n * row_bytes + 4 * n) / HBM_BYTES_PER_S * 1e3
+    log("  radix_sort_rows by step: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        + f" (sum {cum[-1]:.4f} ms)")
+    log(f"  radix_sort_rows: {k_ms:.4f} ms = {n / k_ms / 1e3:.1f} M rows/s ({n * row_bytes / k_ms / 1e6:.1f} GB/s of "
+        f"rows sorted); bound 2 x N x {row_bytes} B / BW = {bound_ms:.4f} ms ({bound_ms / k_ms:.1%}); this design's "
+        f"bytes {design / 1e9:.2f} GB = {design / HBM_BYTES_PER_S * 1e3:.4f} ms; the first design's four whole-row "
+        f"passes {first_ms:.4f} ms; radix_pass (counts, one pass, permutation) {pass_ms:.4f} ms")
     del rows
     torch.cuda.empty_cache()
     return {
-        "name": "radix_pass", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/radix_sort.cu",
+        "name": "radix_sort_rows", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/radix_sort.cu",
         "replaces": "sparkucx_tpu/ops/radix.py:254",
         "launches": None, "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": l_ms,
-        "shape": f"whole sort of {n} rows of {row_bytes} B, {NUM_PASSES} passes; ms per pass {pass_ms:.4f}",
+        "shape": f"whole sort of {n} rows of {row_bytes} B: counts, {NUM_PASSES} pair passes, one permutation",
+        "steps_ms": split, "design_bytes_ms": design / HBM_BYTES_PER_S * 1e3, "first_design_bound_ms": first_ms,
     }
 
 
@@ -672,8 +723,10 @@ def radix_timings(device, n: int):
 
 def profile_call(name: str, fn, top: int = 6):
     """One call of ``fn`` under torch.profiler: the device time by kernel
-    (its largest ``top``) and the device's busy share of the call's wall
-    time.  Returns the busy share, or None when the trace holds no device time."""
+    (its largest ``top``), the device's busy share of the call's wall time
+    and the host time of the three costliest CUDA runtime calls (a
+    ``cudaMalloc`` blocks the host while the device idles).  Returns the
+    busy share, or None when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -696,6 +749,10 @@ def profile_call(name: str, fn, top: int = 6):
         f"({busy_us / wall_us:.1%}); by kernel:")
     for dev_us, count, key in rows[:top]:
         log(f"    {dev_us / 1e3:9.3f} ms  x{count:<3} {key[:90]}")
+    runtime = sorted(((evt.cpu_time_total, evt.count, evt.key) for evt in prof.key_averages()
+                      if evt.device_type == torch.autograd.DeviceType.CPU and evt.key.startswith("cuda")),
+                     reverse=True)
+    log("    host, CUDA runtime calls: " + ", ".join(f"{key} {us / 1e3:.3f} ms x{count}" for us, count, key in runtime[:3]))
     return busy_us / wall_us
 
 
@@ -703,7 +760,7 @@ def terasort(device, n: int = 100_000_000, reps: int = 3):
     """TeraSort at the reference's 10 GB through the sort's entry point,
     impl='radix', checked bit for bit against the library sort; then 'radix'
     and 'single' timed on the same data.  Returns (stats, K6 launches)."""
-    from sparkucx_tpu_torch.ops.radix import radix_pass
+    from sparkucx_tpu_torch.ops.radix import radix_sort_rows
     from sparkucx_tpu_torch.ops.sort import SortSpec, build_distributed_sort
 
     keys, payload = terasort_data(device, n)
@@ -714,9 +771,10 @@ def terasort(device, n: int = 100_000_000, reps: int = 3):
     assert single.spec.impl == "single"
     torch.cuda.reset_peak_memory_stats()
 
-    radix_pass.launches = 0
+    radix_sort_rows.launches = 0
     (ko, po, counts), secs = wall(lambda: radix(keys, payload, [n]))
-    launches = radix_pass.launches
+    launches = radix_sort_rows.launches
+    assert launches == 1, f"one radix sort launched K6 {launches} times"
     assert counts.tolist() == [n]
     want_k, order = torch.sort(keys, stable=True)
     assert torch.equal(ko, want_k), "TeraSort keys differ from the library sort"
@@ -819,29 +877,72 @@ def check_k1_calls(device, label: str, calls, reps: int = 10) -> dict:
     return first
 
 
-def check_k3_calls(device, label: str, calls, reps: int = 5) -> dict:
+def check_k3_calls(device, label: str, calls, reps: int = 7) -> dict:
     """K3 bit-equal to its plain version on every recorded
     ``ring_exchange_grid(n, slot, window, steps, data)`` call of one path;
-    the first timed beside its plain version, the library transpose and the
-    bound.  Returns the reading."""
-    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+    the first timed through the wrapper and as its launch alone (on the
+    cached window table, into a grid allocated once), beside its plain
+    version, the library transpose and one contiguous copy, in rounds
+    (:func:`time_rounds`), and the bound.  Returns the reading,
+    with the largest difference from the plain version over every recorded
+    call and the launch alone's grid (``max_abs_err``)."""
+    from sparkucx_tpu_torch.ops import ring_kernels
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_args, ring_exchange_grid, ring_exchange_grid_ref
 
+    err = 0
     for k, args in enumerate(calls):
         got = ring_exchange_grid(*args)
         want = ring_exchange_grid_ref(*args)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), f"ring_exchange_grid at {label}, call {k}: differs from its plain version"
+        e = max_abs_err(got, want)
+        assert e == 0, f"ring_exchange_grid at {label}, call {k}: differs from its plain version by {e}"
+        err = max(err, e)
         del got, want
     n, slot, w, steps, data = calls[0]
     lane = data.shape[1]
-    k_ms = time_ms(lambda: ring_exchange_grid(*calls[0]), reps)
-    p_ms = time_ms(lambda: ring_exchange_grid_ref(*calls[0]), reps)
-    l_ms = time_ms(lambda: data.view(n, n, slot, lane).transpose(0, 1).contiguous(), reps)
+    grid = torch.zeros_like(data)
+    lib = ring_kernels._library()
+    launch = ring_exchange_args(n, slot, w, steps, data, grid)
+    ring_kernels._check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*launch))
+    want = ring_exchange_grid_ref(*calls[0])
+    torch.cuda.synchronize()
+    e = max_abs_err(grid, want)
+    assert e == 0, f"ring_exchange_launch alone at {label}: differs from the plain version by {e}"
+    err = max(err, e)
+    del want
+    # in rounds, so that a slow spell of the card (after a large free) falls on each alike;
+    # "copy" is the card's own rate for the same bytes, one contiguous device-to-device copy
+    t = time_rounds({
+        "wrapper": lambda: ring_exchange_grid(*calls[0]),
+        "launch": lambda: ring_kernels._check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*launch)),
+        "plain": lambda: ring_exchange_grid_ref(*calls[0]),
+        "library": lambda: data.view(n, n, slot, lane).transpose(0, 1).contiguous(),
+        "copy": lambda: grid.copy_(data),
+    }, reps)
+    del grid
+    k_ms, launch_ms, p_ms, l_ms, copy_ms = (statistics.median(t[k]) for k in ("wrapper", "launch", "plain", "library", "copy"))
+    # host milliseconds a call spends before its launch, and allocating its grid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ring_exchange_grid(*calls[0])
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.empty_like(data)
+    alloc_ms = (time.perf_counter() - t0) / reps * 1e3
     b_ms = 2 * data.numel() * 4 / HBM_BYTES_PER_S * 1e3
     log(f"  ring_exchange_grid at {label}: all {len(calls)} recorded calls equal to ring_exchange_grid_ref; "
-        f"n={n}, {data.shape[0]} rows of {lane * 4} B, {len(steps)} steps, windows of {w} rows: {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "rows": int(data.shape[0])}
+        f"n={n}, {data.shape[0]} rows of {lane * 4} B, {len(steps)} steps, windows of {w} rows: {k_ms:.4f} ms "
+        f"(the launch alone {launch_ms:.4f} ms), plain {p_ms:.4f} ms, "
+        f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms, one contiguous copy of the same bytes {copy_ms:.4f} ms; "
+        f"host time a call {host_ms:.4f} ms, of which allocating the grid {alloc_ms:.4f} ms; by round, wrapper "
+        f"{' '.join(f'{x:.4f}' for x in t['wrapper'])}, launch {' '.join(f'{x:.4f}' for x in t['launch'])}, "
+        f"plain {' '.join(f'{x:.4f}' for x in t['plain'])}")
+    return {"ms": k_ms, "launch_ms": launch_ms, "max_abs_err": err, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "contiguous_copy_ms": copy_ms, "host_ms": host_ms, "alloc_ms": alloc_ms,
+            "rows": int(data.shape[0]), "row_bytes": lane * 4, "executors": n, "steps": len(steps), "window_rows": w}
 
 
 def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: int = 10) -> dict:
@@ -1021,7 +1122,7 @@ def check_ring_kernels(device, big=True) -> None:
     from sparkucx_tpu_torch.ops.combine import CombineSpec
     from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
     from sparkucx_tpu_torch.ops.ring_kernels import (
-        ring_combine_grid, ring_combine_grid_ref, ring_combine_tier, ring_exchange_grid,
+        MAX_EXECUTORS, ring_combine_grid, ring_combine_grid_ref, ring_combine_tier, ring_exchange_grid,
         ring_exchange_grid_ref,
     )
 
@@ -1042,6 +1143,17 @@ def check_ring_kernels(device, big=True) -> None:
         for chunks in (1, 2, 4):
             k3_case("", n, chunks, 1000 * chunks, 9)
         k3_case("16-byte words", n, 2, 512, 128)
+    k3_case("executor limit", MAX_EXECUTORS, 2, 64, 128)
+    # a staging view 4 bytes past a 16-byte boundary: the 4-byte word path
+    n, slot, lane = 4, 4096, 128
+    flat = ring_rows(device, 1, 1, n * n * slot * lane + 1, gen).view(-1)
+    data = flat[1 : 1 + n * n * slot * lane].view(n * n * slot, lane)
+    steps = ring_schedule(n, 2).raw_steps()
+    got = ring_exchange_grid(n, slot, slot // 2, steps, data)
+    assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // 2, steps, data)), "ring_exchange_grid off 16 B"
+    log(f"  ring_exchange_grid {'staging 4 B off a 16-byte boundary':<34} n={n} chunks=2 slot={slot:>7} "
+        f"row={lane * 4:>3} B  equal")
+    del flat, data, got
     if big:
         slot = 300_000  # 4 x 4 x 300,000 rows of 512 B = 2.46 GB
         k3_case(f"{16 * slot * 512 / 2**30:.2f} GiB grid (past 2**31 B)", 4, 2, slot, 128)
@@ -1423,7 +1535,7 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
     from sparkucx_tpu_torch.ops import ici_exchange
     from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_scatter, block_scatter_ref
     from sparkucx_tpu_torch.ops.exchange import oracle_exchange
-    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid
     from sparkucx_tpu_torch.store import hbm_store
     from sparkucx_tpu_torch.store.hbm_store import default_peer_ranges
     from sparkucx_tpu_torch.transport.tpu import TpuShuffleCluster
@@ -1529,29 +1641,18 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
             "capacity": capacity, "sizes": sizes, "shards": shards}
     torch.cuda.empty_cache()
 
-    n_, slot, w, steps, data = seen.pop("ring")["args"]
-    got = ring_exchange_grid(n_, slot, w, steps, data)
-    want = ring_exchange_grid_ref(n_, slot, w, steps, data)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    assert err == 0, "ring_exchange_grid at the superstep's shapes differs from its plain version"
-    del got, want
-    torch.cuda.empty_cache()
-    k_ms = time_ms(lambda: ring_exchange_grid(n_, slot, w, steps, data), 5)
-    p_ms = time_ms(lambda: ring_exchange_grid_ref(n_, slot, w, steps, data), 3)
-    lane = data.shape[1]
-    l_ms = time_ms(lambda: data.view(n_, n_, slot, lane).transpose(0, 1).contiguous(), 5)
+    k3 = check_k3_calls(device, "the superstep's shapes", seen.pop("ring")["calls"])
+    readings["k3"] = k3
     row = {
         "name": "ring_exchange_grid", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/ring_exchange.cu",
         "replaces": "sparkucx_tpu/ops/pallas_kernels.py:573",
-        "launches": launches["ring_exchange_grid"], "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": 2 * data.numel() * 4 / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": l_ms,
-        "shape": f"n={n_}, {data.shape[0]} rows of {lane * 4} B, {len(steps)} steps, windows of {w} rows",
+        "launches": launches["ring_exchange_grid"], "max_abs_err": k3["max_abs_err"],
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"], "bound_by": "bytes",
+        "library_ms": k3["library_ms"],
+        "shape": f"n={k3['executors']}, {k3['rows']} rows of {k3['row_bytes']} B, {k3['steps']} steps, windows of "
+                 f"{k3['window_rows']} rows; the launch alone {k3['launch_ms']:.4f} ms",
     }
-    log(f"  ring_exchange_grid at the superstep's shapes: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"library {l_ms:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
-    del data, seen
+    del seen
     torch.cuda.empty_cache()
     return readings, row, keep
 
@@ -1758,8 +1859,9 @@ def chunked_plan(device, keep, n=4, mappers=200, reducers=200) -> dict:
     pallas, ``host_recv_mode='device'``: every fetched block equal to the
     written one, every spliced receive shard equal to phase 13's (which
     equals ``oracle_exchange``), K2, K3 and K1 counted per sub-round and the
-    ``run_exchange`` times beside phase 13's single-shot ones.  On a second
-    shuffle, recorded, K3 and K1 held against their plain versions on every
+    ``run_exchange`` times beside phase 13's single-shot ones, then two more
+    timed runs on fresh shuffles, each with the caching allocator's device
+    allocations, frees and retries.  On a further shuffle, recorded, K3 and K1 held against their plain versions on every
     sub-round's inputs and timed at those shapes (recording keeps those
     inputs alive, so this run is not the timed one); the device's busy
     share of a third, profiled ``run_exchange``.  Then the ``memmap``
@@ -1796,7 +1898,9 @@ def chunked_plan(device, keep, n=4, mappers=200, reducers=200) -> dict:
         meta = shuffle(cluster, 4)
         for k in kernels:
             k.launches = 0
+        before = alloc_counters()
         _, secs = wall(lambda: cluster.run_exchange(4))
+        allocs = {k: v - before[k] for k, v in alloc_counters().items()}
         used = {k.__name__: k.launches for k in kernels}
         subrounds = cluster.stats.summary("exchange.pipeline.drain").ops
         assert subrounds > 1, f"exchange.impl={impl}: the plan did not chunk"
@@ -1815,13 +1919,28 @@ def chunked_plan(device, keep, n=4, mappers=200, reducers=200) -> dict:
                 f"exchange.impl={impl}: reducer {r}'s fetch differs from the written blocks")
         phase_ms = cluster.device_times_ms(4)
         out[impl] = {"run_exchange_ms": secs * 1e3, "exchange_ms": phase_ms.get("exchange"),
-                     "seal_ms": phase_ms.get("seal"), "subrounds": subrounds, "launches": used}
+                     "seal_ms": phase_ms.get("seal"), "subrounds": subrounds, "launches": used, "allocator": allocs}
         log(f"  exchange.impl={impl}, slot_quota_rows={quota} (a quarter of the {slot}-row slot), depth 2: "
             f"{subrounds} sub-rounds, run_exchange {secs * 1e3:.2f} ms wall (device: seal {phase_ms.get('seal', 0):.2f} "
-            f"ms, exchange {phase_ms.get('exchange', 0):.2f} ms), launches {used}; receive shards equal the "
-            "single-shot ones, every fetch equals its written blocks")
+            f"ms, exchange {phase_ms.get('exchange', 0):.2f} ms; allocator {allocs}), launches {used}; receive "
+            "shards equal the single-shot ones, every fetch equals its written blocks")
         cluster.remove_shuffle(4)
         del meta, packed
+
+        # the same timed run again, twice, on fresh shuffles: whether a slow
+        # run comes back, and what the caching allocator did in each
+        out[impl]["repeats"] = []
+        for sid in (7, 8):
+            shuffle(cluster, sid)
+            before = alloc_counters()
+            _, t = wall(lambda: cluster.run_exchange(sid))
+            allocs = {k: v - before[k] for k, v in alloc_counters().items()}
+            d = cluster.device_times_ms(sid)
+            out[impl]["repeats"].append({"run_exchange_ms": t * 1e3, "seal_ms": d.get("seal"),
+                                         "exchange_ms": d.get("exchange"), "allocator": allocs})
+            log(f"  exchange.impl={impl}, again: run_exchange {t * 1e3:.2f} ms wall (device: seal "
+                f"{d.get('seal', 0):.2f} ms, exchange {d.get('exchange', 0):.2f} ms; allocator {allocs})")
+            cluster.remove_shuffle(sid)
         torch.cuda.empty_cache()
 
         # K3 and K1 at the sub-rounds' own shapes, on a second run's recorded inputs
@@ -1846,7 +1965,9 @@ def chunked_plan(device, keep, n=4, mappers=200, reducers=200) -> dict:
 
         # the device's busy share of one chunked run_exchange, on a third shuffle
         shuffle(cluster, 6)
+        before = alloc_counters()
         out[impl]["busy"] = profile_call(f"chunked run_exchange ({impl})", lambda: cluster.run_exchange(6), top=8)
+        log(f"    allocator {({k: v - before[k] for k, v in alloc_counters().items()})}")
         cluster.remove_shuffle(6)
         del cluster
         torch.cuda.empty_cache()
@@ -2011,13 +2132,16 @@ def main() -> int:
     ici = ici_benchmark(device)
 
     log(json.dumps({"main_path": {k: v for k, v in stats.items() if k != "launches"}}))
+    sort_stats["k6"] = {k: table[2][k] for k in ("steps_ms", "design_bytes_ms", "first_design_bound_ms")}
     log(json.dumps({"terasort": sort_stats}))
     log(json.dumps({"groupby": {"q1_sf10": q1_stats, "q18_stage1_sf1": q18_stats}}))
     log(json.dumps({"pallas_superstep": superstep}))
     log(json.dumps({"fused_send_side": fused, "chunked_plan": chunked}))
     log(json.dumps({"ici": {str(n): p for n, p in ici["per_n"].items()}, "ici_held": ici["held"]}))
     log(card_line())
-    log(json.dumps({"kernels": [{k: v for k, v in e.items() if k != "shape"} for e in table]}))
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    log(json.dumps({"kernels": [{k: e[k] for k in keys} for e in table]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -2,13 +2,13 @@
 // the fused send side (K5) for Hopper (sm_90a), for executors that share one card.
 //
 // Replaces the Pallas kernels of sparkucx_tpu/ops/pallas_kernels.py:
-//   * ring_copy_launch                   <- ring_exchange_grid (kernel :623, walk
+//   * ring_exchange_launch               <- ring_exchange_grid (kernel :623, walk
 //     _ring_exchange_steps :509): every executor's destination-major staging in,
 //     every executor's sender-major grid out.  Receiver j's grid row
 //     i*slot + c*w holds sender i's row j*slot + c*w: the own slot and one window
 //     per schedule item (offset d, chunk c) from sender (j - d) mod n.
-//   * ring_fold_launch + ring_merge_launch, or ring_copy_launch + the
-//     ring_claim_launch / ring_apply_launch rounds <- ring_combine_grid
+//   * ring_fold_launch + ring_merge_launch (shared tier), or ring_exchange_launch
+//     + the ring_round_launch rounds (global tier) <- ring_combine_grid
 //     (kernel :720): the same grid, and every landed window of
 //     [key | payload | count] rows folded into receiver j's dense accumulator
 //     (G, width) + counts (G, 1), own slot first, then the items in step order.
@@ -20,8 +20,9 @@
 // The Python side (ops/ring_kernels.py) turns the schedule into a window table,
 // receiver-major and in that canonical order within a receiver, 5 int64 a window:
 // (receiver, sender, src_row, dst_row, rows).  Executors' staging and grids are
-// addressed through tables of device pointers, one per executor, so the same
-// kernels can later take peer pointers.
+// addressed through tables of pointers, one per executor (K3 carries its tables
+// in the launch's parameters, K4's fold and K5 read them from device memory), so
+// the same kernels can later take peer pointers.
 //
 // Bound: bytes.  K3 reads every staged row once and writes it once
 // (2 * n * n * slot * row_bytes).  K4 moves the same bytes plus its O(groups)
@@ -34,6 +35,29 @@
 // write-through design that stores each packed row to the staging and the grid
 // at once, never reading it back, would move the bound's bytes (later work).
 //
+// K3's design.  A pure copy at the memory's rate needs the card's bytes in flight
+// (about latency x bandwidth, some 25 KB an SM) and no per-call host work.  The
+// window table and its row prefix depend only on the schedule, so the wrapper keeps
+// them on the device (a bounded cache) and passes the executors' staging and grid
+// base pointers by value, in the launch's parameters (at most kMaxExecs executors);
+// a call uploads nothing.  The windows, laid end to end in table order, form one
+// byte stream cut into kChunkBytes chunks, one CTA a chunk, as a large device copy
+// is cut: the hardware keeps up to 8 of these CTAs on an SM and starts the next one
+// as one ends, so an SM keeps up to 128 KB of loads in flight.  A CTA finds its
+// chunk's window in the cached row prefix (a binary search over a few hundred
+// bytes that stay in cache) and steps into the next window where the chunk crosses
+// one.  Pieces that are 16-byte multiples in address and length are copied by all
+// the CTA's threads with 16-byte loads, kVectorUnroll in flight a thread; others
+// (rows of 36 B, a view off the alignment) in 4-byte words, inside the same launch.
+// All offsets are 64-bit.
+// Measured on an H100 at chip_smoke.py phase 13's shape (4 x 4 x 623,182 rows of
+// 512 B; bound 3.05 ms, one contiguous device copy of the same bytes 3.36-3.40 ms):
+// the first redesign, persistent CTAs (one an SM) taking every 132nd 64 KB chunk
+// with 8 loads in flight a thread, took 3.52-3.57 ms; a ring of 6 shared-memory
+// stages of 32 KB a CTA, thread 0 issuing a TMA bulk load (cp.async.bulk global ->
+// shared, completion on the stage's mbarrier) and a bulk store per stage, took
+// 3.61-3.65 ms.  PERF.md has this design's times.
+//
 // K5's design.  The TPU kernel ordered every peer's scatter before any remote
 // read with a barrier; here the two phases are separated by a grid-wide barrier
 // inside one cooperative launch (cudaLaunchCooperativeKernel), whose grid is the
@@ -43,16 +67,16 @@
 // launch have arrived.
 // Phase 1 walks each executor's packed rows in equal spans per CTA with K2's
 // mapping (row_copy.cuh), through per-executor pointer tables; phase 2 walks K3's
-// spans grid-stride, reading the staging with L2-only loads (__ldcg), since rows
-// written by other SMs in phase 1 must not come from a stale L1 line.  Staging
-// rows no block covers carry into the grid unchanged; zero-count blocks are
-// no-ops.  All offsets are 64-bit.
+// first design's spans grid-stride, reading the staging with L2-only loads
+// (__ldcg), since rows written by other SMs in phase 1 must not come from a stale
+// L1 line.  Staging rows no block covers carry into the grid unchanged; zero-count
+// blocks are no-ops.  All offsets are 64-bit.
 //
-// Design.  Every window is cut into spans of `span_rows` rows, one span per CTA
-// (a span never crosses a window); a span is walked in tiles of 256 rows: the
-// tile is copied as a flat run of 16-byte words (4-byte words where the row
-// width or a pointer is not 16-byte aligned), then folded while its rows are
-// still in L1.  All offsets are 64-bit.
+// K4's design.  Every window is cut into spans of `span_rows` rows, one span per
+// CTA (a span never crosses a window; K3's first design); a span is walked in tiles
+// of 256 rows: the tile is copied as a flat run of 16-byte words (4-byte words where
+// the row width or a pointer is not 16-byte aligned), then folded while its rows
+// are still in L1.  All offsets are 64-bit.
 //
 // The fold is deterministic and uses no float atomics.  Shared-memory tier
 // (G * (width + 1) words fit in shared memory): a CTA folds its span into a
@@ -63,7 +87,7 @@
 // the spans of a window in order into a window partial and the windows in
 // canonical order into the accumulator: acc = op(acc, window), the structure
 // of the JAX fold acc + sum(window).  Global tier (larger G, e.g. 2^23 groups):
-// the grid is copied first, then each canonical window index is folded in
+// the grid is copied first (K3's launch), then each canonical window index is folded in
 // rounds: every pending valid row bids its row index for its group with an
 // integer atomicMin, the lowest bidder applies its row to the accumulator with
 // plain loads and stores, and the rest wait for the next round.  A window whose
@@ -190,14 +214,97 @@ __device__ __forceinline__ void copy_words(const Word* __restrict__ src, Word* _
   for (; k < words; k += kThreads) dst[k] = src[k];
 }
 
-// K3, and the copy and shared-memory fold of K4.  One CTA a span, grid-stride.
-template <typename Word, typename T, bool kQuant, bool kFold>
+// -- K3 -------------------------------------------------------------------------
+
+constexpr int kMaxExecs = 64;          // executors whose pointers one K3 launch carries
+constexpr int kCopyThreads = 256;
+constexpr int kChunkBytes = 32 * 1024; // the bytes of the stream one CTA copies
+constexpr int kVectorUnroll = 4;       // 16-byte loads in flight a thread
+
+struct RingCopyArgs {
+  const long long* windows;    // (num_windows, kWindowWords), the wrapper's cached table
+  const long long* row_start;  // (num_windows + 1) rows before each window, in table order
+  int num_windows;
+  int num_execs;
+  long long row_bytes;
+  const uint8_t* src[kMaxExecs];  // executor i's staging
+  uint8_t* dst[kMaxExecs];        // receiver j's grid
+};
+
+// All the CTA's threads copy n bytes as Words, kUnroll loads in flight a thread.
+template <typename Word, int kUnroll>
+__device__ __forceinline__ void copy_piece(const uint8_t* s, uint8_t* d, long long n) {
+  const Word* sw = reinterpret_cast<const Word*>(s);
+  Word* dw = reinterpret_cast<Word*>(d);
+  const long long words = n / static_cast<long long>(sizeof(Word));
+  long long k = threadIdx.x;
+  for (; k + (kUnroll - 1) * kCopyThreads < words; k += kUnroll * kCopyThreads) {
+    Word x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) x[u] = sw[k + u * kCopyThreads];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) dw[k + u * kCopyThreads] = x[u];
+  }
+  for (; k < words; k += kCopyThreads) dw[k] = sw[k];
+}
+
+// The window holding byte `at` of the stream of windows: its bounds in the stream
+// and its source and destination bases.
+struct WindowCursor {
+  int v;
+  long long begin, end;
+  const uint8_t* src;
+  uint8_t* dst;
+
+  __device__ void load(const RingCopyArgs& a, int window) {
+    v = window;
+    begin = __ldg(a.row_start + v) * a.row_bytes;
+    end = __ldg(a.row_start + v + 1) * a.row_bytes;
+    const long long* win = a.windows + static_cast<long long>(v) * kWindowWords;
+    src = a.src[__ldg(win + 1)] + __ldg(win + 2) * a.row_bytes;
+    dst = a.dst[__ldg(win + 0)] + __ldg(win + 3) * a.row_bytes;
+  }
+};
+
+// One CTA a chunk of the stream; the chunk may cross from one window into the next.
+__global__ void __launch_bounds__(kCopyThreads) ring_exchange_kernel(const __grid_constant__ RingCopyArgs a) {
+  const long long total = __ldg(a.row_start + a.num_windows) * a.row_bytes;
+  long long at = static_cast<long long>(blockIdx.x) * kChunkBytes;
+  const long long stop = min(at + kChunkBytes, total);
+  int lo = 0, hi = a.num_windows - 1;  // the last window starting at or before `at`
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(a.row_start + mid) * a.row_bytes <= at) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  WindowCursor w;
+  w.load(a, lo);
+  while (at < stop) {
+    while (at >= w.end) w.load(a, w.v + 1);
+    const long long n = min(stop, w.end) - at;
+    const uint8_t* s = w.src + (at - w.begin);
+    uint8_t* d = w.dst + (at - w.begin);
+    if (((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(d) |
+          static_cast<uintptr_t>(n)) & 15) != 0) {
+      copy_piece<uint32_t, 4>(s, d, n);
+    } else {
+      copy_piece<int4, kVectorUnroll>(s, d, n);
+    }
+    at += n;
+  }
+}
+
+// K4's copy and shared-memory fold.  One CTA a span, grid-stride.
+template <typename Word, typename T, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
 ring_span_kernel(const long long* __restrict__ windows, const long long* __restrict__ span_start,
                  int num_windows, long long span_rows, const uint8_t* const* __restrict__ src,
                  uint8_t* const* __restrict__ dst, long long row_bytes, Ops ops, FoldGeometry g,
                  uint32_t* __restrict__ partials) {
-  extern __shared__ uint32_t part[];  // (G, width + 1) words, kFold only
+  extern __shared__ uint32_t part[];  // (G, width + 1) words
   const long long total_spans = span_start[num_windows];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -212,18 +319,15 @@ ring_span_kernel(const long long* __restrict__ windows, const long long* __restr
     const uint8_t* s = src[sender] + (win[2] + r0) * row_bytes;
     uint8_t* d = dst[receiver] + (win[3] + r0) * row_bytes;
 
-    if (kFold) {
-      for (int i = threadIdx.x; i < part_words; i += kThreads) {
-        part[i] = identity_bits<T>(ops, g.width, i % (g.width + 1));
-      }
-      __syncthreads();
+    for (int i = threadIdx.x; i < part_words; i += kThreads) {
+      part[i] = identity_bits<T>(ops, g.width, i % (g.width + 1));
     }
+    __syncthreads();
     for (long long t = 0; t < r1 - r0; t += kTileRows) {
       const long long tile_rows = min(static_cast<long long>(kTileRows), r1 - r0 - t);
       const long long words = tile_rows * row_bytes / static_cast<long long>(sizeof(Word));
       copy_words(reinterpret_cast<const Word*>(s + t * row_bytes),
                  reinterpret_cast<Word*>(d + t * row_bytes), words);
-      if (!kFold) continue;
 
       const uint32_t* row =
           reinterpret_cast<const uint32_t*>(s + (t + threadIdx.x) * row_bytes);
@@ -269,12 +373,10 @@ ring_span_kernel(const long long* __restrict__ windows, const long long* __restr
         __syncthreads();
       }
     }
-    if (kFold) {
-      __syncthreads();
-      uint32_t* out = partials + span * part_words;
-      for (int i = threadIdx.x; i < part_words; i += kThreads) out[i] = part[i];
-      __syncthreads();  // the partial is re-initialised by the next span
-    }
+    __syncthreads();
+    uint32_t* out = partials + span * part_words;
+    for (int i = threadIdx.x; i < part_words; i += kThreads) out[i] = part[i];
+    __syncthreads();  // the partial is re-initialised by the next span
   }
 }
 
@@ -310,12 +412,14 @@ ring_merge_kernel(const long long* __restrict__ span_start, int num_receivers,
 }
 
 // K4, global tier: the rows of canonical window `index` of every receiver,
-// read from the landed grids.  grid.y = receiver.
+// read from the landed grids (receiver j's at grid + j * grid_bytes).  grid.y =
+// receiver.
 struct RoundArgs {
   const long long* windows;
   int windows_per_receiver;
   int index;
-  uint8_t* const* grids;
+  const uint8_t* grid;
+  long long grid_bytes;
   long long row_bytes;
   long long max_rows;  // rows of the largest window of this index
   uint8_t* done;       // (receivers, max_rows) rows already folded
@@ -331,7 +435,7 @@ ring_round_kernel(RoundArgs a, Ops ops, FoldGeometry g, uint32_t* __restrict__ a
   const long long* win =
       a.windows + (static_cast<long long>(j) * a.windows_per_receiver + a.index) * kWindowWords;
   const long long rows = win[4];
-  const uint8_t* base = a.grids[j] + win[3] * a.row_bytes;
+  const uint8_t* base = a.grid + j * a.grid_bytes + win[3] * a.row_bytes;
   uint8_t* done = a.done + j * a.max_rows;
   int* owner = a.owner + static_cast<long long>(j) * g.num_groups;
   for (long long r = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; r < rows;
@@ -382,13 +486,13 @@ Ops make_ops(const int* ops, int width) {
   return o;
 }
 
-template <typename Word, typename T, bool kQuant, bool kFold>
+template <typename Word, typename T, bool kQuant>
 int launch_spans(const long long* windows, const long long* span_start, int num_windows,
                  long long total_spans, long long span_rows, const void* src_ptrs,
                  const void* dst_ptrs, long long row_bytes, Ops ops, FoldGeometry g,
                  void* partials, cudaStream_t stream) {
-  auto kernel = ring_span_kernel<Word, T, kQuant, kFold>;
-  const size_t smem = kFold ? static_cast<size_t>(g.num_groups) * (g.width + 1) * 4 : 0;
+  auto kernel = ring_span_kernel<Word, T, kQuant>;
+  const size_t smem = static_cast<size_t>(g.num_groups) * (g.width + 1) * 4;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -404,17 +508,17 @@ int launch_spans(const long long* windows, const long long* span_start, int num_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kQuant, bool kFold>
+template <typename T, bool kQuant>
 int dispatch_word(bool wide, const long long* windows, const long long* span_start,
                   int num_windows, long long total_spans, long long span_rows,
                   const void* src_ptrs, const void* dst_ptrs, long long row_bytes, Ops ops,
                   FoldGeometry g, void* partials, cudaStream_t stream) {
   if (wide) {
-    return launch_spans<int4, T, kQuant, kFold>(windows, span_start, num_windows, total_spans,
+    return launch_spans<int4, T, kQuant>(windows, span_start, num_windows, total_spans,
                                                 span_rows, src_ptrs, dst_ptrs, row_bytes, ops,
                                                 g, partials, stream);
   }
-  return launch_spans<int, T, kQuant, kFold>(windows, span_start, num_windows, total_spans,
+  return launch_spans<int, T, kQuant>(windows, span_start, num_windows, total_spans,
                                              span_rows, src_ptrs, dst_ptrs, row_bytes, ops, g,
                                              partials, stream);
 }
@@ -552,21 +656,37 @@ int launch_fused(FusedArgs a, cudaStream_t stream) {
 
 extern "C" {
 
-// K3: copy every window of the table (all n * n regions) in one launch.
-// `wide` selects 16-byte words; the caller sets it only when row_bytes and
-// every pointer of both tables are 16-byte aligned.
-int ring_copy_launch(const long long* windows, const long long* span_start, int num_windows,
-                     long long total_spans, long long span_rows, const void* src_ptrs,
-                     const void* dst_ptrs, long long row_bytes, int wide, void* stream) {
-  if (num_windows <= 0 || total_spans <= 0) return 0;
-  if (row_bytes <= 0 || row_bytes % 4 != 0 || span_rows <= 0) {
+// K3: every window of the table (all n * n regions) in one launch.  `table` (device)
+// holds the (num_windows x 5) window table, then its (num_windows + 1) row prefix,
+// whose last entry is total_rows.  Executor i's staging starts at src_base + i *
+// exec_bytes and receiver j's grid at dst_base + j * exec_bytes; the launch carries
+// them as tables of pointers, by value.
+int ring_exchange_launch(const long long* table, int num_windows, long long total_rows,
+                         int num_execs, long long src_base, long long dst_base,
+                         long long exec_bytes, long long row_bytes, void* stream) {
+  if (num_windows <= 0 || total_rows <= 0) return 0;
+  if (table == nullptr || num_execs < 1 || num_execs > kMaxExecs || row_bytes <= 0 ||
+      row_bytes % 4 != 0 || src_base == 0 || dst_base == 0 || exec_bytes < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  FoldGeometry g{1, 0, static_cast<int>(row_bytes / 4), 0, 0};
-  return dispatch_word<int, false, false>(wide != 0, windows, span_start, num_windows,
-                                          total_spans, span_rows, src_ptrs, dst_ptrs, row_bytes,
-                                          Ops{}, g, nullptr, static_cast<cudaStream_t>(stream));
+  RingCopyArgs a{};
+  a.windows = table;
+  a.row_start = table + static_cast<long long>(num_windows) * kWindowWords;
+  a.num_windows = num_windows;
+  a.num_execs = num_execs;
+  a.row_bytes = row_bytes;
+  for (int i = 0; i < num_execs; ++i) {
+    a.src[i] = reinterpret_cast<const uint8_t*>(src_base + i * exec_bytes);
+    a.dst[i] = reinterpret_cast<uint8_t*>(dst_base + i * exec_bytes);
+  }
+  const long long chunks = (total_rows * row_bytes + kChunkBytes - 1) / kChunkBytes;
+  if (chunks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  ring_exchange_kernel<<<static_cast<unsigned>(chunks), kCopyThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
+
+int ring_max_execs() { return kMaxExecs; }
 
 // K4 shared-memory tier, step 1: copy every window and fold each span into
 // partials (total_spans, G, width + 1) words.
@@ -584,16 +704,16 @@ int ring_fold_launch(const long long* windows, const long long* span_start, int 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool w = wide != 0;
   if (!is_float) {
-    return dispatch_word<int, false, true>(w, windows, span_start, num_windows, total_spans,
+    return dispatch_word<int, false>(w, windows, span_start, num_windows, total_spans,
                                            span_rows, src_ptrs, dst_ptrs, row_bytes, o, g,
                                            partials, s);
   }
   if (qblock > 0) {
-    return dispatch_word<float, true, true>(w, windows, span_start, num_windows, total_spans,
+    return dispatch_word<float, true>(w, windows, span_start, num_windows, total_spans,
                                             span_rows, src_ptrs, dst_ptrs, row_bytes, o, g,
                                             partials, s);
   }
-  return dispatch_word<float, false, true>(w, windows, span_start, num_windows, total_spans,
+  return dispatch_word<float, false>(w, windows, span_start, num_windows, total_spans,
                                            span_rows, src_ptrs, dst_ptrs, row_bytes, o, g,
                                            partials, s);
 }
@@ -624,20 +744,22 @@ int ring_merge_launch(const long long* span_start, int num_receivers, int window
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 global tier: one round over canonical window `index` of every receiver.
+// K4 global tier: one round over canonical window `index` of every receiver, over
+// the grids K3's launch landed (receiver j's at grid_base + j * grid_bytes).
 // apply = 0 bids (atomicMin of the row index per group), apply = 1 folds the
 // winning rows into the accumulator and raises *pending for the others.
 int ring_round_launch(int apply, const long long* windows, int num_receivers,
-                      int windows_per_receiver, int index, const void* grid_ptrs,
-                      long long row_bytes, long long max_rows, void* done, void* owner,
-                      void* pending, const int* ops, int width, int num_groups, int is_float,
-                      int qblock, int wq4, void* acc_vals, void* acc_counts, void* stream) {
+                      int windows_per_receiver, int index, const void* grid_base,
+                      long long grid_bytes, long long row_bytes, long long max_rows, void* done,
+                      void* owner, void* pending, const int* ops, int width, int num_groups,
+                      int is_float, int qblock, int wq4, void* acc_vals, void* acc_counts,
+                      void* stream) {
   if (num_receivers <= 0 || max_rows <= 0) return 0;
   FoldGeometry g{num_groups, width, static_cast<int>(row_bytes / 4), qblock, wq4};
   if (!check_geometry(g, is_float, row_bytes)) return static_cast<int>(cudaErrorInvalidValue);
   const Ops o = make_ops(ops, width);
-  RoundArgs a{windows, windows_per_receiver, index, static_cast<uint8_t* const*>(grid_ptrs),
-              row_bytes, max_rows, static_cast<uint8_t*>(done), static_cast<int*>(owner),
+  RoundArgs a{windows, windows_per_receiver, index, static_cast<const uint8_t*>(grid_base),
+              grid_bytes, row_bytes, max_rows, static_cast<uint8_t*>(done), static_cast<int*>(owner),
               static_cast<int*>(pending)};
   long long blocks = (max_rows + kThreads - 1) / kThreads;
   const long long cap = static_cast<long long>(sm_count()) * 16;

@@ -32,11 +32,21 @@ hand-written Hopper kernels of ``csrc/ring_exchange.cu`` (built on first use,
 ops/cuda_build.py) or raises; on a CPU tensor it runs the plain PyTorch
 version beside it, which is also what the kernels are held against on the
 card.  Each wrapper's ``launches`` counts the calls that launched its kernels.
+
+K3 keeps its window table on the device, looked up by schedule in a bounded
+cache (:func:`window_table`), and passes the executors' base pointers by
+value in its launch's parameters: a call checks its operands, allocates the
+grid and launches, and uploads nothing.  K4's global tier copies its grid
+with that launch too; K4's shared tier and K5 build their tables per call
+(``_Launch``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
+from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,6 +67,12 @@ SMEM_FOLD_BYTES = 64 * 1024
 PARTIALS_BUDGET_BYTES = 256 << 20
 #: aggregate columns the kernel folds (``kMaxWidth`` in the source)
 MAX_WIDTH = 16
+#: executors one K3 launch addresses (``kMaxExecs`` in the source): their
+#: staging and grid base pointers travel in the launch's parameters
+MAX_EXECUTORS = 64
+#: K3 window tables kept on the devices, by schedule (as many exchange
+#: functions as ``transport/tpu.py`` caches)
+WINDOW_CACHE_SIZE = 32
 _OPS = {"sum": 0, "avg": 0, "min": 1, "max": 2}
 _INT_MAX = 2**31 - 1
 
@@ -79,6 +95,49 @@ def ring_windows(num_devices: int, slot_rows: int, window_rows: int, steps) -> n
                 i = (j - offset) % n
                 table.append((j, i, j * slot + chunk * w, i * slot + chunk * w, w))
     return np.asarray(table, dtype=np.int64).reshape(-1, 5)
+
+
+class WindowTable(NamedTuple):
+    """K3's window table on one device: ``tensor`` holds, as int64, the
+    ``(num_windows, 5)`` :func:`ring_windows` table, then its row prefix
+    (``num_windows + 1`` entries, the last ``total_rows``)."""
+
+    tensor: torch.Tensor
+    num_windows: int
+    total_rows: int
+
+
+_window_tables: "OrderedDict[tuple, WindowTable]" = OrderedDict()  #: guarded by _window_lock
+_window_lock = threading.Lock()
+
+
+def window_table(num_devices: int, slot_rows: int, window_rows: int, steps, device) -> WindowTable:
+    """K3's window table for this schedule on ``device``: built, checked and
+    uploaded on first use, then taken from a cache of the
+    ``WINDOW_CACHE_SIZE`` most recently used schedules."""
+    if not isinstance(device, torch.device):
+        device = torch.device(device)
+    key = (num_devices, slot_rows, window_rows, steps, device)
+    try:
+        hash(key)  # RingSchedule.raw_steps() is hashable as it is
+    except TypeError:
+        steps = tuple(tuple(tuple(item) for item in step) for step in steps)
+        key = (num_devices, slot_rows, window_rows, steps, device)
+    with _window_lock:
+        hit = _window_tables.get(key)
+        if hit is not None:
+            _window_tables.move_to_end(key)
+            return hit
+    _check_schedule(num_devices, slot_rows, window_rows, steps)
+    table = ring_windows(num_devices, slot_rows, window_rows, steps)
+    prefix = np.concatenate([[0], np.cumsum(table[:, 4])]).astype(np.int64)
+    entry = WindowTable(upload(np.concatenate([table.reshape(-1), prefix]), device), table.shape[0], int(prefix[-1]))
+    with _window_lock:
+        _window_tables[key] = entry
+        _window_tables.move_to_end(key)
+        while len(_window_tables) > WINDOW_CACHE_SIZE:
+            _window_tables.popitem(last=False)
+    return entry
 
 
 def _check_data(name: str, data: torch.Tensor, num_devices: int, slot_rows: int) -> None:
@@ -139,28 +198,36 @@ def ring_combine_grid_ref(
 # -- the kernels -------------------------------------------------------------
 
 
+_lib = None  #: the configured library, once loaded
+
+
 def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is not None:
+        return _lib
     from sparkucx_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load("ring_exchange")
     span = [_P, _P, _I, _L, _L, _P, _P, _L, _I]  # windows .. row_bytes, wide
-    lib.ring_copy_launch.argtypes = span + [_P]
+    lib.ring_exchange_launch.argtypes = [_P, _I, _L, _I, _L, _L, _L, _L, _P]
     lib.fused_scatter_launch.argtypes = [_P, _P, _P, _I, _I, _P, _L, _L, _P, _P, _I, _L, _L, _I, _P]
     lib.fused_scatter_grid_size.argtypes = [_I]
     lib.fused_scatter_grid_size.restype = ctypes.c_int
     lib.ring_fold_launch.argtypes = span + [_INTS, _I, _I, _I, _I, _I, _P, _P]
     lib.ring_merge_launch.argtypes = [_P, _I, _I, _P, _INTS, _I, _I, _I, _P, _P, _P]
     lib.ring_round_launch.argtypes = [
-        _I, _P, _I, _I, _I, _P, _L, _L, _P, _P, _P, _INTS, _I, _I, _I, _I, _I, _P, _P, _P,
+        _I, _P, _I, _I, _I, _P, _L, _L, _L, _P, _P, _P, _INTS, _I, _I, _I, _I, _I, _P, _P, _P,
     ]
-    for fn in (lib.ring_copy_launch, lib.ring_fold_launch, lib.ring_merge_launch, lib.ring_round_launch,
-               lib.fused_scatter_launch):
+    for fn in (lib.ring_exchange_launch, lib.ring_fold_launch, lib.ring_merge_launch,
+               lib.ring_round_launch, lib.fused_scatter_launch, lib.ring_max_width, lib.ring_max_execs):
         fn.restype = ctypes.c_int
-    lib.ring_max_width.restype = ctypes.c_int
     if lib.ring_max_width() != MAX_WIDTH:
         raise RuntimeError(f"ring_exchange.cu folds {lib.ring_max_width()} columns, MAX_WIDTH is {MAX_WIDTH}")
+    if lib.ring_max_execs() != MAX_EXECUTORS:
+        raise RuntimeError(f"ring_exchange.cu addresses {lib.ring_max_execs()} executors, MAX_EXECUTORS is {MAX_EXECUTORS}")
     lib.ring_error_string.argtypes = [ctypes.c_int]
     lib.ring_error_string.restype = ctypes.c_char_p
+    _lib = lib
     return lib
 
 
@@ -180,10 +247,10 @@ def span_rows_for(total_rows: int, part_bytes: int = 0) -> int:
 
 
 class _Launch:
-    """Device tables of one launch: the window table, its span prefix and the
-    per-executor pointer tables of the staging and the grid.  K5 also passes
-    ``packed``; its tables then run, as int64, packed, staging and grid
-    pointers, and a zero barrier counter (``self.fused``)."""
+    """Device tables of one K4 fold or K5 launch: the window table, its span
+    prefix and the per-executor pointer tables of the staging and the grid.
+    K5 also passes ``packed``; its tables then run, as int64, packed,
+    staging and grid pointers, and a zero barrier counter (``self.fused``)."""
 
     def __init__(self, num_devices, slot_rows, window_rows, steps, data, grid, part_bytes=0, packed=None):
         device = data.device
@@ -230,6 +297,20 @@ def _check_device(data: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {data.device}")
 
 
+def ring_exchange_args(num_devices: int, slot_rows: int, window_rows: int, steps, data, grid):
+    """The arguments of one K3 launch (``ring_exchange_launch`` in the source)
+    from ``data`` into ``grid`` on the current stream: the cached window
+    table, and the executors' staging and grid bases as two base pointers and
+    the bytes of one executor's part (the launch passes them on by value)."""
+    table = window_table(num_devices, slot_rows, window_rows, steps, data.device)
+    row_bytes = data.shape[1] * 4
+    # the raw stream handle, without building a torch.cuda.Stream: a call's host
+    # time before its launch shows in its time when the stream is idle
+    return (table.tensor.data_ptr(), table.num_windows, table.total_rows, num_devices, data.data_ptr(),
+            grid.data_ptr(), num_devices * slot_rows * row_bytes, row_bytes,
+            torch._C._cuda_getCurrentRawStream(data.device.index))
+
+
 def ring_exchange_grid(
     num_devices: int, slot_rows: int, window_rows: int, steps, data: torch.Tensor
 ) -> torch.Tensor:
@@ -237,16 +318,19 @@ def ring_exchange_grid(
     sender-major grid (module docstring), all windows of the schedule in one
     launch.  ``steps``: the raw schedule, steps of ``(offset, chunk,
     direction)`` (``RingSchedule.raw_steps()``).  Returns a new
-    ``(n * n * slot, lane)`` tensor."""
+    ``(n * n * slot, lane)`` tensor.  On the card at most ``MAX_EXECUTORS``
+    executors."""
     _check_data("data", data, num_devices, slot_rows)
-    _check_schedule(num_devices, slot_rows, window_rows, steps)
     if data.device.type == "cpu":
+        _check_schedule(num_devices, slot_rows, window_rows, steps)
         return ring_exchange_grid_ref(num_devices, slot_rows, window_rows, steps, data)
+    if num_devices > MAX_EXECUTORS:
+        raise ValueError(f"ring_exchange_grid addresses at most {MAX_EXECUTORS} executors in one launch, got {num_devices}")
     _check_device(data, "ring_exchange_grid")
     grid = torch.empty_like(data)
-    launch = _Launch(num_devices, slot_rows, window_rows, steps, data, grid)
     lib = _library()
-    _check(lib, "ring_copy_launch", lib.ring_copy_launch(*launch.span_args(), launch.stream))
+    _check(lib, "ring_exchange_launch", lib.ring_exchange_launch(
+        *ring_exchange_args(num_devices, slot_rows, window_rows, steps, data, grid)))
     ring_exchange_grid.launches += 1
     return grid
 
@@ -352,7 +436,8 @@ def ring_combine_grid(
     order.  Returns ``(grid (n * n * slot, lane), acc_vals (n * G, width) of
     cspec.dtype, acc_counts (n * G, 1) int32)``: receiver j's accumulator is
     rows ``[j * G, (j + 1) * G)``.  Deterministic: two calls on the same
-    inputs return the same bits."""
+    inputs return the same bits.  On the card, the global tier (see
+    :func:`ring_combine_tier`) takes at most ``MAX_EXECUTORS`` executors."""
     cspec.validate()
     _check_data("data", data, num_devices, slot_rows)
     _check_schedule(num_devices, slot_rows, window_rows, steps)
@@ -363,16 +448,22 @@ def ring_combine_grid(
         )
     if data.device.type == "cpu":
         return ring_combine_grid_ref(num_devices, slot_rows, window_rows, steps, cspec, data)
-    _check_device(data, "ring_combine_grid")
     if cspec.width > MAX_WIDTH:
         raise ValueError(f"the ring combine kernel folds at most {MAX_WIDTH} columns, got {cspec.width}")
+    tier = ring_combine_tier(cspec)
+    if tier == "global" and num_devices > MAX_EXECUTORS:
+        raise ValueError(
+            f"ring_combine_grid's global tier copies through K3's launch, which addresses at most "
+            f"{MAX_EXECUTORS} executors, got {num_devices}"
+        )
+    _check_device(data, "ring_combine_grid")
     n, g, w = num_devices, cspec.num_groups, cspec.width
     grid = torch.empty_like(data)
     acc_vals = torch.empty((n * g, w), dtype=cspec.torch_dtype, device=data.device)
     acc_counts = torch.empty((n * g, 1), dtype=torch.int32, device=data.device)
     ops, is_float, qblock, wq4 = _fold_args(cspec)
     lib = _library()
-    if ring_combine_tier(cspec) == "shared":
+    if tier == "shared":
         launch = _Launch(n, slot_rows, window_rows, steps, data, grid, part_bytes=g * (w + 1) * 4)
         partials = torch.empty(launch.total_spans * g * (w + 1), dtype=torch.int32, device=data.device)
         _check(lib, "ring_fold_launch", lib.ring_fold_launch(
@@ -381,26 +472,26 @@ def ring_combine_grid(
             launch.span_start, n, launch.per_receiver, partials.data_ptr(), ops, w, g, is_float,
             acc_vals.data_ptr(), acc_counts.data_ptr(), launch.stream))
     else:
-        launch = _Launch(n, slot_rows, window_rows, steps, data, grid)
-        _check(lib, "ring_copy_launch", lib.ring_copy_launch(*launch.span_args(), launch.stream))
+        args = ring_exchange_args(n, slot_rows, window_rows, steps, data, grid)
+        _check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*args))
+        table, num_windows, _rows, _n, _src, grid_ptr, grid_bytes, row_bytes, stream = args
+        per_receiver = num_windows // n
         init_vals, _ = acc_init(cspec, data.device)
         acc_vals.copy_(init_vals.repeat(n, 1))
         acc_counts.zero_()
-        max_rows = int(launch.window_rows.max())
         owner = torch.full((n * g,), _INT_MAX, dtype=torch.int32, device=data.device)
-        done = torch.empty((n * max_rows,), dtype=torch.uint8, device=data.device)
+        done = torch.empty((n * slot_rows,), dtype=torch.uint8, device=data.device)
         pending = torch.zeros((1,), dtype=torch.int32, device=data.device)
-        for index in range(launch.per_receiver):
-            rows = int(launch.window_rows[index])
+        for index in range(per_receiver):
+            rows = slot_rows if index == 0 else window_rows  # the own slot, then one window an item
             done.zero_()
             while True:
                 pending.zero_()
                 for apply in (0, 1):
                     _check(lib, "ring_round_launch", lib.ring_round_launch(
-                        apply, launch.windows, n, launch.per_receiver, index, launch.dst,
-                        launch.row_bytes, rows, done.data_ptr(), owner.data_ptr(), pending.data_ptr(),
-                        ops, w, g, is_float, qblock, wq4, acc_vals.data_ptr(), acc_counts.data_ptr(),
-                        launch.stream))
+                        apply, table, n, per_receiver, index, grid_ptr, grid_bytes, row_bytes, rows,
+                        done.data_ptr(), owner.data_ptr(), pending.data_ptr(), ops, w, g, is_float, qblock,
+                        wq4, acc_vals.data_ptr(), acc_counts.data_ptr(), stream))
                 if not int(pending.item()):
                     break
     ring_combine_grid.launches += 1

@@ -51,7 +51,7 @@ from sparkucx_tpu_torch.ops.columnar import (
     unpack_shard_prefixes,
 )
 from sparkucx_tpu_torch.ops.exchange import same_device
-from sparkucx_tpu_torch.ops.radix import radix_sort_rows_
+from sparkucx_tpu_torch.ops.radix import radix_sort_rows
 from sparkucx_tpu_torch.utils.devices import resolve_devices
 
 KEY_MAX = np.uint32(0xFFFFFFFF)  # padding sentinel; sorts last
@@ -236,12 +236,12 @@ def _sort_body_single(spec: SortSpec, keys, payload, nv: np.ndarray):
 
 
 def _sort_body_radix(spec: SortSpec, keys, payload, nv: np.ndarray):
-    """One executor through K6: key and payload fused into one row tensor and
-    moved TOGETHER by every radix pass; the rows are sorted in place and the
-    payload returned is a view of them."""
+    """One executor through K6: key and payload fused into one row tensor,
+    sorted by ``radix_sort_rows`` (each row moves once); the fused input is
+    dropped and the payload returned is a view of the sorted rows."""
     rows = _fuse(keys, payload)
     rows[int(nv[0]):, 0] = -1  # KEY_MAX's bits: padding sorts last
-    radix_sort_rows_(rows)
+    rows = radix_sort_rows(rows)
     out_keys = key_values(rows[:, 0])
     # invalid rows (forced KEY_MAX, input tail) sort stably to the back:
     # positions >= nv are exactly them

@@ -1,6 +1,7 @@
 """Kernel-against-plain checks for the card: the Hopper block gather and block
-scatter (sparkucx_tpu_torch/csrc/block_copy.cu) and the radix pass
-(csrc/radix_sort.cu) against their plain PyTorch versions on CUDA tensors,
+scatter (sparkucx_tpu_torch/csrc/block_copy.cu), the radix sort and its pass
+(csrc/radix_sort.cu) and the ring kernels (csrc/ring_exchange.cu) against
+their plain PyTorch versions on CUDA tensors,
 bit-exact.  Marked ``cuda``; each test skips unless
 a CUDA device is present (``python -m pytest tests/test_torch_cuda.py`` on the
 machine with the card).  No JAX here."""
@@ -18,7 +19,13 @@ from sparkucx_tpu_torch.ops.block_kernels import (
     block_scatter_ref,
     plan_tensors,
 )
-from sparkucx_tpu_torch.ops.radix import TILE_ROWS, radix_pass, radix_pass_ref, radix_sort_rows
+from sparkucx_tpu_torch.ops.radix import (
+    TILE_ROWS,
+    radix_pass,
+    radix_pass_ref,
+    radix_sort_rows,
+    radix_sort_rows_ref,
+)
 from sparkucx_tpu_torch.ops.sort import SortSpec, build_distributed_sort
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +115,65 @@ def test_radix_pass_matches_plain(cuda, n, width, shift):
     assert torch.equal(got, radix_pass_ref(rows, shift))
 
 
+def _radix_case(device, name):
+    """The rows of one named K6 case (sizes in rows of 100 B unless named)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(sum(name.encode()))
+
+    def rand(n, width=25):
+        return torch.randint(-(2**31), 2**31 - 1, (n, width), dtype=torch.int32, generator=gen, device=device)
+
+    if name.startswith("N="):
+        return rand(int(name[2:]))
+    if name == "one whole tile":
+        return rand(TILE_ROWS)
+    if name == "one row past a tile":
+        return rand(TILE_ROWS + 1)
+    if name in ("all keys 7", "all keys 0xFFFFFFFF"):
+        rows = rand(50_000)
+        rows[:, 0] = 7 if name == "all keys 7" else -1
+        return rows
+    if name == "keys >= 2**31":
+        rows = rand(200_000)
+        rows[:, 0] |= -(2**31)
+        rows[::2, 0] &= 2**31 - 1
+        return rows
+    if name == "three keys, payload = row id":
+        n = 1_000_000
+        keys = torch.randint(0, 3, (n,), dtype=torch.int32, generator=gen, device=device)
+        return torch.stack([keys, torch.arange(n, dtype=torch.int32, device=device)], dim=1)
+    if name.startswith("width "):
+        return rand(70_001, int(name[6:]))
+    if name == "float32 rows":
+        return rand(100_000).view(torch.float32)
+    if name == "past 2**31 bytes":
+        return rand(22_000_000)
+    raise ValueError(name)
+
+
+_RADIX_CASES = ["N=0", "N=1", "N=2", "one whole tile", "one row past a tile", "all keys 7", "all keys 0xFFFFFFFF",
+                "keys >= 2**31", "three keys, payload = row id", "width 1", "width 2", "width 25", "float32 rows",
+                "past 2**31 bytes"]
+
+
+@pytest.mark.parametrize("name", _RADIX_CASES)
+def test_radix_sort_rows_matches_plain(cuda, name):
+    rows = _radix_case(cuda, name)
+    keep = rows.clone()
+    before = radix_sort_rows.launches
+    got = radix_sort_rows(rows)
+    torch.cuda.synchronize()
+    assert radix_sort_rows.launches == before + (1 if rows.shape[0] else 0)
+    assert torch.equal(rows.view(torch.int32), keep.view(torch.int32)), "the input was written"
+    want = radix_sort_rows_ref(rows)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if name == "three keys, payload = row id":  # stable: equal keys keep their row order
+        keys = got[:, 0].to(torch.int64)
+        ids = got[:, 1].to(torch.int64)
+        same = keys[1:] == keys[:-1]
+        assert bool((ids[1:][same] > ids[:-1][same]).all())
+
+
 def test_radix_sort_matches_library_sort(cuda):
     """Sign-bit keys and a partial last tile, float32 rows through their bits."""
     rows = _radix_rows(cuda, 300_001, 25, seed=7).view(torch.float32)
@@ -162,6 +228,59 @@ def test_ring_exchange_grid_matches_plain(cuda, n, chunks, lane):
     assert ring_exchange_grid.launches == before + 1
     assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // chunks, steps, data))
     assert torch.equal(got, data.view(n, n, slot, lane).transpose(0, 1).reshape(-1, lane))
+
+
+def test_ring_exchange_grid_off_the_16_byte_alignment(cuda):
+    """A staging view that starts 4 bytes past a 16-byte boundary: every
+    piece takes the 4-byte word path."""
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+
+    n, slot, lane, chunks = 4, 4096, 32, 2
+    flat = _ring_data(cuda, 1, n * n * slot * lane + 1, 1, seed=5).view(-1)
+    data = flat[1 : 1 + n * n * slot * lane].view(n * n * slot, lane)
+    assert data.data_ptr() % 16 == 4 and data.is_contiguous()
+    steps = ring_schedule(n, chunks).raw_steps()
+    got = ring_exchange_grid(n, slot, slot // chunks, steps, data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // chunks, steps, data))
+
+
+@pytest.mark.parametrize("lane", [32, 9])
+def test_ring_exchange_grid_at_the_executor_limit(cuda, lane):
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import MAX_EXECUTORS, ring_exchange_grid, ring_exchange_grid_ref
+
+    n, slot = MAX_EXECUTORS, 64
+    data = _ring_data(cuda, n, slot, lane, seed=64 + lane)
+    steps = ring_schedule(n, 2).raw_steps()
+    got = ring_exchange_grid(n, slot, slot // 2, steps, data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // 2, steps, data))
+    with pytest.raises(ValueError, match="executors"):
+        ring_exchange_grid(n + 1, 1, 1, ring_schedule(n + 1, 1).raw_steps(), _ring_data(cuda, n + 1, 1, lane, seed=1))
+
+
+def test_ring_exchange_grid_two_calls_on_one_cached_schedule(cuda):
+    """Two stagings through one cached window table land in two grids, each
+    its own staging's transpose; the second call adds no table."""
+    from sparkucx_tpu_torch.ops import ring_kernels
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+
+    n, slot, lane = 8, 2048, 128
+    steps = ring_schedule(n, 4).raw_steps()
+    a = _ring_data(cuda, n, slot, lane, seed=21)
+    b = _ring_data(cuda, n, slot, lane, seed=22)
+    ga = ring_kernels.ring_exchange_grid(n, slot, slot // 4, steps, a)
+    tables = len(ring_kernels._window_tables)
+    table = ring_kernels.window_table(n, slot, slot // 4, steps, a.device)
+    gb = ring_kernels.ring_exchange_grid(n, slot, slot // 4, steps, b)
+    torch.cuda.synchronize()
+    assert len(ring_kernels._window_tables) == tables
+    assert ring_kernels.window_table(n, slot, slot // 4, steps, b.device) is table
+    assert ga.data_ptr() != gb.data_ptr()
+    assert torch.equal(ga, a.view(n, n, slot, lane).transpose(0, 1).reshape(-1, lane))
+    assert torch.equal(gb, b.view(n, n, slot, lane).transpose(0, 1).reshape(-1, lane))
 
 
 def _combine_data(device, n, slot, cspec, seed, distinct):
@@ -224,6 +343,30 @@ def test_ring_combine_grid_matches_plain(cuda, groups, aggs, dtype, qmode, disti
     assert torch.equal(av.view(torch.int32), pv.view(torch.int32))
     for a, b in zip((grid, av, ac), again):  # deterministic
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("width", [2, 3])
+def test_ring_combine_global_tier_copies_through_k3(cuda, width):
+    """The global tier lands its grid with K3's launch (16-byte rows at
+    width 2, 4-byte words at 3) on a schedule already in K3's cache, then
+    folds in rounds."""
+    from sparkucx_tpu_torch.ops import ring_kernels
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+
+    cspec = CombineSpec(1 << 20, ("sum", "max", "min")[:width], np.int32)
+    assert ring_kernels.ring_combine_tier(cspec) == "global"
+    n, slot = 4, 2048
+    data = _combine_data(cuda, n, slot, cspec, seed=70 + width, distinct=False)
+    steps = ring_schedule(n, 2).raw_steps()
+    k3 = ring_kernels.ring_exchange_grid(n, slot, slot // 2, steps, data)
+    before = ring_kernels.ring_combine_grid.launches
+    grid, av, ac = ring_kernels.ring_combine_grid(n, slot, slot // 2, steps, cspec, data)
+    torch.cuda.synchronize()
+    assert ring_kernels.ring_combine_grid.launches == before + 1
+    pg, pv, pc = ring_kernels.ring_combine_grid_ref(n, slot, slot // 2, steps, cspec, data)
+    assert torch.equal(grid, k3) and torch.equal(grid, pg)
+    assert torch.equal(ac, pc) and torch.equal(av, pv)
 
 
 @pytest.mark.parametrize("groups", [8, 1 << 20])

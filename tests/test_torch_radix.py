@@ -111,7 +111,7 @@ def test_empty_rows():
 
 
 @pytest.mark.parametrize("shift", [0, 4, 8, 16, 24, 28, 31])
-@pytest.mark.parametrize("n", [1, 64, torch_radix.TILE_ROWS + 1])
+@pytest.mark.parametrize("n", [1, 64, 2 * torch_radix.TILE_ROWS + 1])
 def test_pass_is_a_stable_sort_by_its_digit(shift, n):
     rng = np.random.default_rng(shift)
     keys = _uniform(rng, n)
@@ -122,51 +122,117 @@ def test_pass_is_a_stable_sort_by_its_digit(shift, n):
     np.testing.assert_array_equal(got, rows[np.argsort(digit, kind="stable")])
 
 
-def test_pass_dests_formula():
-    """The first output row of segment (b, t): rows of buckets < b, plus rows
-    of bucket b in tiles < t — the JAX package's two exclusive cumsums,
-    computed here as one flat cumsum of the bucket-major table."""
-    rng = np.random.default_rng(9)
-    hist = rng.integers(0, 50, size=(7, torch_radix.NUM_BUCKETS))  # (tiles, B), the JAX layout
-    total = hist.sum(axis=0)
-    want = (np.cumsum(total) - total)[None, :] + (np.cumsum(hist, axis=0) - hist)
-    got = torch_radix.pass_dests(torch.from_numpy(hist.T.copy()).to(torch.int32))
-    assert got.dtype == torch.int64
-    np.testing.assert_array_equal(got.numpy().T, want)
+def _onesweep_model(keys, vals, shift, counts, tile, rng):
+    """One pass of the card's pair sort in numpy (csrc/radix_sort.cu
+    ``radix_onesweep_kernel``): the pass's global digit starts from the
+    counts; per tile the warps' stable ranks, the tile's count of each digit,
+    and its exclusive prefix from a look-back over earlier tiles that have
+    published either their count only or their inclusive prefix (chosen at
+    random, as the tiles' CTAs race); the tile in digit order, each digit's
+    run written from its look-back prefix."""
+    n, warps = len(keys), 8
+    warp_rows = -(-tile // warps)
+    digit = ((keys.astype(np.int64) >> shift) & (torch_radix.NUM_BUCKETS - 1)).astype(np.int64)
+    start = np.cumsum(counts) - counts
+    tiles = -(-n // tile)
+    count = np.zeros((tiles, torch_radix.NUM_BUCKETS), np.int64)
+    inclusive = np.zeros_like(count)
+    published = rng.random(tiles) < 0.5  # which tiles have published their inclusive prefix
+    out_k, out_v = np.empty_like(keys), np.empty_like(vals)
+    for t in range(tiles):
+        lo, hi = t * tile, min(n, (t + 1) * tile)
+        d = digit[lo:hi]
+        # ranks: the digit's count in earlier warps plus earlier rows of this warp
+        warp_count = np.zeros((warps, torch_radix.NUM_BUCKETS), np.int64)
+        rank = np.empty(hi - lo, np.int64)
+        for i, dg in enumerate(d):
+            w = i // warp_rows
+            rank[i] = warp_count[w, dg]
+            warp_count[w, dg] += 1
+        warp_offset = np.cumsum(warp_count, axis=0) - warp_count
+        rank += warp_offset[np.arange(hi - lo) // warp_rows, d]
+        count[t] = warp_count.sum(axis=0)
+        if t == 0:
+            excl = start.copy()
+        else:
+            excl = np.zeros(torch_radix.NUM_BUCKETS, np.int64)
+            for u in range(t - 1, -1, -1):
+                if u == 0 or published[u]:
+                    excl += inclusive[u]
+                    break
+                excl += count[u]
+        inclusive[t] = excl + count[t]
+        local = np.cumsum(count[t]) - count[t]
+        pos = local[d] + rank  # the row's place in the tile's digit order
+        assert np.array_equal(np.sort(pos), np.arange(hi - lo))
+        dest = excl[d] - local[d] + pos
+        out_k[dest], out_v[dest] = keys[lo:hi], vals[lo:hi]
+    return out_k, out_v
+
+
+def _pair_sort_model(rows, tile, rng):
+    """The card's whole sort in numpy: every pass's digit counts from one read
+    of the keys, the passes over (key, row number) pairs, then one row
+    permutation."""
+    keys = rows[:, 0].view(np.uint32)
+    counts = [np.bincount((keys.astype(np.int64) >> (p * torch_radix.BITS)) & (torch_radix.NUM_BUCKETS - 1),
+                          minlength=torch_radix.NUM_BUCKETS) for p in range(torch_radix.NUM_PASSES)]
+    k, v = keys.copy(), np.arange(len(keys), dtype=np.uint32)
+    for p in range(torch_radix.NUM_PASSES):
+        k, v = _onesweep_model(k, v, p * torch_radix.BITS, counts[p], tile, rng)
+    return rows[v]
 
 
 @pytest.mark.parametrize("tile", [64, 1000])
-def test_kernel_bookkeeping_reproduces_the_plain_pass(tile):
-    """The scatter's arithmetic in numpy: bucket-major histograms per tile,
-    ``pass_dests``, and each row at its segment's first row plus its rank
-    among the tile's rows of its digit, equals the plain pass."""
+def test_onesweep_model_reproduces_the_plain_pass(tile):
+    """All-digit counts plus per-tile look-back prefixes: the permutation one
+    pass over (key, row number) pairs yields moves the rows exactly as the
+    plain pass does, on every pass's digit."""
     rng = np.random.default_rng(tile)
     keys = _uniform(rng, 5003)
     keys[::3] = 0xFFFFFFFF
+    keys[1::7] = 5
     rows = _rows(keys, width=2)
-    shift, n = 8, len(keys)
-    tiles = -(-n // tile)
-    digit = (keys.astype(np.int64) >> shift) & (torch_radix.NUM_BUCKETS - 1)
-    tile_of = np.arange(n) // tile
-    hist = np.zeros((torch_radix.NUM_BUCKETS, tiles), np.int32)
-    np.add.at(hist, (digit, tile_of), 1)
-    dests = torch_radix.pass_dests(torch.from_numpy(hist)).numpy()
-    seen = np.zeros_like(hist)
-    out = np.empty_like(rows)
-    for i in range(n):
-        d, t = digit[i], tile_of[i]
-        out[dests[d, t] + seen[d, t]] = rows[i]
-        seen[d, t] += 1
-    np.testing.assert_array_equal(out, torch_radix.radix_pass_ref(torch.from_numpy(rows), shift).numpy())
+    for p in range(torch_radix.NUM_PASSES):
+        shift = p * torch_radix.BITS
+        counts = np.bincount((keys.astype(np.int64) >> shift) & 255, minlength=torch_radix.NUM_BUCKETS)
+        k, perm = _onesweep_model(keys, np.arange(len(keys), dtype=np.uint32), shift, counts, tile, rng)
+        want = torch_radix.radix_pass_ref(torch.from_numpy(rows), shift).numpy()
+        np.testing.assert_array_equal(rows[perm], want)
+        np.testing.assert_array_equal(k, want[:, 0].view(np.uint32))
+
+
+@pytest.mark.parametrize("width,tile", [(1, 64), (25, 1000)])
+def test_pairs_then_permutation_reproduce_the_sort(width, tile):
+    rng = np.random.default_rng(width)
+    keys = _uniform(rng, 4099)
+    keys[::5] = 2**31 + 3
+    rows = _rows(keys, width=width - 1, rng=rng) if width > 1 else keys.view(np.int32)[:, None].copy()
+    got = torch_radix.radix_sort_rows(torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(_pair_sort_model(rows, tile, rng), got)
+    np.testing.assert_array_equal(got, rows[np.argsort(keys, kind="stable")])
+
+
+def test_row_numbers_are_uint32():
+    rows = torch.empty((2**32, 1), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="uint32"):
+        torch_radix.radix_sort_rows(rows)
+    with pytest.raises(ValueError, match="uint32"):
+        torch_radix.radix_pass(rows, 0)
+    assert torch_radix.MAX_ROWS == 2**32 - 1
 
 
 def test_sort_in_place_and_pure():
+    """The sort returns new rows and leaves its input as it was (the JAX
+    function is pure); the builder checks its shape."""
     rng = np.random.default_rng(10)
     rows = _rows(_uniform(rng, 333), width=2, rng=rng)
     want = rows[np.argsort(rows[:, 0].view(np.uint32), kind="stable")]
     src = torch.from_numpy(rows.copy())
-    assert torch_radix.radix_sort_rows_(src) is src
-    np.testing.assert_array_equal(src.numpy(), want)
+    got = torch_radix.radix_sort_rows(src)
+    assert got.data_ptr() != src.data_ptr()
+    np.testing.assert_array_equal(src.numpy(), rows)
+    np.testing.assert_array_equal(got.numpy(), want)
     fn = torch_radix.build_radix_sort(333, 3)
     assert fn.impl == "radix"
     np.testing.assert_array_equal(fn(torch.from_numpy(rows)).numpy(), want)
@@ -175,9 +241,11 @@ def test_sort_in_place_and_pure():
 
 
 def test_cpu_tensors_run_the_plain_version():
-    before = torch_radix.radix_pass.launches
-    torch_radix.radix_sort_rows(torch.from_numpy(_rows(np.arange(100, dtype=np.uint32))))
-    assert torch_radix.radix_pass.launches == before
+    before = torch_radix.radix_pass.launches, torch_radix.radix_sort_rows.launches
+    rows = torch.from_numpy(_rows(np.arange(100, dtype=np.uint32)))
+    torch_radix.radix_sort_rows(rows)
+    torch_radix.radix_pass(rows, 8)
+    assert (torch_radix.radix_pass.launches, torch_radix.radix_sort_rows.launches) == before
 
 
 def test_pass_rejects_bad_arguments():
@@ -198,5 +266,9 @@ def test_digit_width_matches_the_kernel_source():
     src = (Path(torch_radix.__file__).parent.parent / "csrc" / "radix_sort.cu").read_text()
     assert int(re.search(r"constexpr int kBits = (\d+);", src).group(1)) == torch_radix.BITS
     assert int(re.search(r"constexpr long long kTileRows = (\d+);", src).group(1)) == torch_radix.TILE_ROWS
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    items = int(re.search(r"constexpr int kItems = (\d+);", src).group(1))
+    assert threads * items == torch_radix.TILE_ROWS  # a tile is the CTA's threads x the keys each ranks
+    assert threads == torch_radix.NUM_BUCKETS  # one thread per digit
+    assert items * 32 < 2**16  # a warp's ranks fit the kernel's 16-bit halves
     assert torch_radix.BITS * torch_radix.NUM_PASSES == 32
-    assert torch_radix.NUM_PASSES % 2 == 0  # radix_sort_rows_ ends in its input
