@@ -10,7 +10,10 @@ failure propagates and the exit code is non-zero:
 2. each kernel against its plain PyTorch version, bit-exact: K1 and K2 on
    ragged plans (empty blocks, count=0 pads at the packed end, 1-row blocks,
    one block covering the whole source, a source above 2**31 bytes, a row
-   width off the 16-byte path); K6 (the radix sort, and its one-digit pass
+   width off the 16-byte path); K1 also at rows of 4, 12, 36, 100 and 512
+   bytes, into ``out`` row slices off 16 bytes (compared whole: rows past
+   the packed total untouched), 40,000 one-row blocks, B = 0, and one block
+   of more than 2 GiB; K6 (the radix sort, and its one-digit pass
    on every digit) on N = 0, 1, 2, one whole tile and one row past it, a
    partial last tile, all-equal keys, keys 0xFFFFFFFF, keys >= 2**31, three
    keys over 1M rows with payload = row id (stability), float32 rows, widths
@@ -45,11 +48,13 @@ failure propagates and the exit code is non-zero:
    ``build_distributed_sort`` on the uncut 10 GB made on the card, checked
    and timed, with its peak device memory;
 10. K3 (ring exchange) and K4 (ring combine) against their plain versions,
-    bit-equal: n in {2, 3, 4, 8} and K3's executor limit, chunks in {1, 2, 4},
-    a staging view off the 16-byte alignment, G = 1, 8, 64 and 2**20
-    (K4's accumulator in device memory), duplicate keys, keys >= 2**31,
-    int8 and blockfloat payloads, all-padding windows, grids past 2**31
-    bytes, K4 twice and compared bit for bit;
+    bit-equal: n in {2, 3, 4, 8}, and 64, 65 and 130 (one, two and three
+    launches of 64 receivers), chunks in {1, 2, 4}, a staging view off the
+    16-byte alignment, G = 1, 8, 64, 2**14 and 2**20 (K4's accumulator in
+    device memory), duplicate keys, keys >= 2**31, int8 and blockfloat
+    payloads, all-padding windows, float min, max and sum over both signed
+    zeros and NaNs of three bit patterns on both tiers, grids past 2**31 bytes, K4 twice and
+    compared bit for bit;
 11. TPC-H Q1 at SF=10 (59,986,052 lineitem rows made from ``--seed``) on
     four executors sharing the card through ``run_grouped_aggregate`` with
     ``exchange.fusedCombine=true`` (K4 launches set to 0 before and read
@@ -60,7 +65,8 @@ failure propagates and the exit code is non-zero:
     inputs and timed;
 12. TPC-H Q18 stage 1 at SF=1 (GROUP BY l_orderkey over 6,001,215 rows, G =
     2**23): fused (K4), unfused (K1) and numpy bit-exact; K4 and K1 held
-    against their plain versions on the runs' own inputs;
+    against their plain versions on the runs' own inputs, K4 once more
+    under ``torch.cuda.set_sync_debug_mode("error")``;
 13. GroupByTest at phase 3's widths on four executors sharing the card under
     ``exchange.impl=pallas`` (K2 seal, K3, then K1 compaction; every count
     set to 0 just before ``run_exchange`` and read just after) against
@@ -160,6 +166,23 @@ def time_rounds(fns: dict, reps: int) -> dict:
     return times
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one ``fn``, ``reps`` of them back to back behind
+    a sleeping kernel: the host has queued them all before the card reaches
+    the first, so no host latency shows (on an idle stream it does)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def wall(fn):
     """(result, seconds) of ``fn`` on the host clock, ending synchronized."""
     torch.cuda.synchronize()
@@ -207,18 +230,32 @@ def check_kernels(device, big_rows: int = (3 << 30) // ROW) -> None:
         return torch.randint(-(2**31), 2**31 - 1, (rows, lane), dtype=torch.int32,
                              generator=gen, device=device)
 
-    def gather_case(name, src, starts, counts, pads=0):
+    def gather_case(name, src, starts, counts, pads=0, offset=None):
+        """K1 against its plain version; with ``offset``, into a row slice
+        that many rows into a larger buffer, compared whole (the rows past
+        the packed total and around the slice left as they were)."""
         total = int(counts.sum())
         outs = np.cumsum(counts) - counts
         starts = np.concatenate([starts, np.zeros(pads, np.int64)])
         counts = np.concatenate([counts, np.zeros(pads, np.int64)])
         outs = np.concatenate([outs, np.full(pads, total, np.int64)])
         s, c, o = plan_tensors(starts, counts, outs, device)
-        got = block_gather(s, c, o, src, total)
-        want = block_gather_ref(s, c, o, src, total)
-        torch.cuda.synchronize()
-        assert torch.equal(got[:total], want[:total]), f"block_gather {name}: mismatch"
-        log(f"  block_gather  {name:<28} blocks={len(counts):>6} rows={total:>9}  equal")
+        lane = src.shape[1]
+        if offset is None:
+            got = block_gather(s, c, o, src, total)
+            want = block_gather_ref(s, c, o, src, total)
+            torch.cuda.synchronize()
+            assert torch.equal(got[:total], want[:total]), f"block_gather {name}: mismatch"
+        else:
+            buf = rand_rows(total + offset + 3, lane)
+            want = buf.clone()
+            block_gather_ref(s, c, o, src, total + 2, out=want[offset : offset + total + 2])
+            block_gather(s, c, o, src, total + 2, out=buf[offset : offset + total + 2])
+            torch.cuda.synchronize()
+            assert torch.equal(buf, want), f"block_gather {name}: mismatch"
+            got = buf
+        del got, want
+        log(f"  block_gather  {name:<36} row={lane * 4:>3} B blocks={len(counts):>6} rows={total:>9}  equal")
 
     def scatter_case(name, dst, starts, counts, pads=0):
         total = int(counts.sum())
@@ -239,14 +276,28 @@ def check_kernels(device, big_rows: int = (3 << 30) // ROW) -> None:
     starts, counts = _ragged_plan(rng, 2000, 1 << 16, 64)
     gather_case("ragged+empty+1-row+pads", src, starts, counts, pads=5)
     gather_case("one block = whole source", src, np.array([0]), np.array([1 << 16]))
-    gather_case("only pads", src, np.zeros(0, np.int64), np.zeros(0, np.int64), pads=3)
-    odd = rand_rows(4096, 33)  # 132-byte rows: the 4-byte path
+    gather_case("only pads", src, np.zeros(0, np.int64), np.zeros(0, np.int64), pads=3, offset=1)
+    odd = rand_rows(4096, 33)  # 132-byte rows
     starts, counts = _ragged_plan(rng, 300, 4096, 40)
     gather_case("132-byte rows", odd, starts, counts, pads=2)
+    # K1 copies byte spans: every row width of the paths, into row slices off 16 bytes
+    for lane in (1, 3, 9, 25, 128):
+        rows = rand_rows(50_000, lane)
+        starts, counts = _ragged_plan(rng, 1000, 50_000, 48)
+        gather_case("ragged+pads", rows, starts, counts, pads=3)
+        for offset in (1, 3):
+            gather_case(f"ragged, out a slice {offset} row(s) in", rows, starts, counts, pads=2, offset=offset)
+        if lane in (3, 128):
+            starts = rng.permutation(50_000)[:40_000].astype(np.int64)
+            gather_case("40000 one-row blocks", rows, starts, np.ones(starts.size, np.int64), offset=1)
+        del rows
+    gather_case("B = 0", src, np.zeros(0, np.int64), np.zeros(0, np.int64), offset=1)
     high = min((1 << 31) // ROW - 1000, big_rows // 2)  # blocks straddle and pass 2**31 B
     big = rand_rows(big_rows)
     starts, counts = _ragged_plan(rng, 500, big_rows, 2000, lo=high)
     gather_case(f"{big_rows * ROW / 2**30:.1f} GiB source, high rows", big, starts, counts, pads=1)
+    one = (big_rows * 3) // 4  # one block of more than 2 GiB, from row 1000 on
+    gather_case(f"one block of {one * ROW / 2**30:.2f} GiB", big, np.array([1000]), np.array([one]), pads=1)
 
     # scatter: disjoint destination windows
     def windows(rows, n, max_rows, lo=0):
@@ -463,8 +514,9 @@ def kernel_timings(device, state, launches):
     """Each kernel at the main path's shapes: the seal's scatter (every block
     into the staging) and the n=1 exchange's gather (the staging's used
     prefix), plus the fetch's gather (one reducer's blocks)."""
+    from sparkucx_tpu_torch.ops import block_kernels
     from sparkucx_tpu_torch.ops.block_kernels import (
-        block_gather, block_gather_ref, block_scatter, block_scatter_ref, plan_tensors,
+        block_gather, block_gather_args, block_gather_ref, block_scatter, block_scatter_ref, plan_tensors,
     )
 
     cluster, sid = state["cluster"], state["sid"]
@@ -527,6 +579,10 @@ def kernel_timings(device, state, launches):
     k_ms = time_ms(lambda: block_gather(*g, staging, total), 10)
     p_ms = time_ms(lambda: block_gather_ref(*g, staging, total), 10)
     l_ms = time_ms(lambda: staging.index_select(0, idx), 10)
+    out = torch.empty((total, LANE), dtype=torch.int32, device=device)
+    lib, args = block_kernels._library(), block_gather_args(*g, staging, out)
+    launch_ms = time_ms(lambda: lib.block_gather_launch(*args), 10)
+    del out
     moved = 2 * total * ROW + 12
     table.append({
         "name": "block_gather", "route": "cuda", "source": "sparkucx_tpu_torch/csrc/block_copy.cu",
@@ -534,7 +590,7 @@ def kernel_timings(device, state, launches):
         "launches": launches["block_gather"], "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes", "library_ms": l_ms,
-        "shape": f"1 block of {total} rows of {ROW} B (the n=1 exchange)",
+        "shape": f"1 block of {total} rows of {ROW} B (the n=1 exchange); the launch alone {launch_ms:.4f} ms",
     })
     del idx
 
@@ -549,9 +605,11 @@ def kernel_timings(device, state, launches):
     assert torch.equal(block_gather(*f, recv, f_total), block_gather_ref(*f, recv, f_total))
     fk = time_ms(lambda: block_gather(*f, recv, f_total), 20)
     fp = time_ms(lambda: block_gather_ref(*f, recv, f_total), 5)
+    f_idx = plan_index(device, (f_starts, f_counts, f_outs), f_total)
+    fl = time_ms(lambda: recv.index_select(0, f_idx), 20)
     fb = (2 * f_total * ROW + 12 * mappers) / HBM_BYTES_PER_S * 1e3
     log(f"  block_gather at one reducer's fetch ({mappers} blocks, {f_total} rows): "
-        f"{fk:.4f} ms, plain {fp:.4f} ms, bound {fb:.4f} ms")
+        f"{fk:.4f} ms, plain {fp:.4f} ms, library {fl:.4f} ms, bound {fb:.4f} ms")
 
     return table
 
@@ -902,8 +960,13 @@ def check_k3_calls(device, label: str, calls, reps: int = 7) -> dict:
     lane = data.shape[1]
     grid = torch.zeros_like(data)
     lib = ring_kernels._library()
-    launch = ring_exchange_args(n, slot, w, steps, data, grid)
-    ring_kernels._check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*launch))
+    groups = ring_exchange_args(n, slot, w, steps, data, grid)  # one launch a group of receivers
+
+    def launch():
+        for args in groups:
+            ring_kernels._check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*args))
+
+    launch()
     want = ring_exchange_grid_ref(*calls[0])
     torch.cuda.synchronize()
     e = max_abs_err(grid, want)
@@ -914,7 +977,7 @@ def check_k3_calls(device, label: str, calls, reps: int = 7) -> dict:
     # "copy" is the card's own rate for the same bytes, one contiguous device-to-device copy
     t = time_rounds({
         "wrapper": lambda: ring_exchange_grid(*calls[0]),
-        "launch": lambda: ring_kernels._check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*launch)),
+        "launch": launch,
         "plain": lambda: ring_exchange_grid_ref(*calls[0]),
         "library": lambda: data.view(n, n, slot, lane).transpose(0, 1).contiguous(),
         "copy": lambda: grid.copy_(data),
@@ -945,28 +1008,62 @@ def check_k3_calls(device, label: str, calls, reps: int = 7) -> dict:
             "rows": int(data.shape[0]), "row_bytes": lane * 4, "executors": n, "steps": len(steps), "window_rows": w}
 
 
+def plan_index(device, plan, rows: int) -> torch.Tensor:
+    """The source row of each of the first ``rows`` packed rows of a K1 plan:
+    the index one ``index_select`` (K1's library yardstick) takes."""
+    starts, counts, outs = (np.asarray(a, np.int64) for a in plan)
+    live = counts > 0
+    base = torch.from_numpy(starts[live] - outs[live]).to(device)
+    idx = torch.repeat_interleave(base, torch.from_numpy(counts[live]).to(device))
+    return (idx + torch.arange(idx.numel(), device=device))[:rows]
+
+
 def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: int = 10) -> dict:
     """K1 against its plain version on one path's own source rows and
     per-receiver plans ``[((starts, counts, outs), rows filled), ...]``:
     the filled rows bit-equal for every receiver; the receiver that fills
-    the most rows timed beside the plain version and the byte bound (each
-    filled row read once and written once, plus the plan).  Returns the
-    reading."""
-    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_gather_ref, plan_tensors
+    the most rows timed through the wrapper and as its launch alone (on a
+    plan and output made once), beside the plain version, one
+    ``index_select`` into the same output (the library call) and the byte
+    bound (each filled row read once and written once, plus the plan), in
+    rounds (:func:`time_rounds`); on the device also beside one contiguous
+    copy of as many bytes.  Returns the reading."""
+    from sparkucx_tpu_torch.ops import block_kernels
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_gather_args, block_gather_ref, plan_tensors
 
     hold_k1(device, label, src, plans, out_rows)
     j = max(range(len(plans)), key=lambda i: plans[i][1])
     plan, filled = plans[j]
     p, segments = plan_tensors(*plan, device), len(plan[1])
     out = torch.empty((out_rows, src.shape[1]), dtype=src.dtype, device=device)
-    k_ms = time_ms(lambda: block_gather(*p, src, out_rows, out=out), reps)
-    p_ms = time_ms(lambda: block_gather_ref(*p, src, out_rows, out=out), reps)
+    idx = plan_index(device, plan, filled)
+    lib = block_kernels._library()
+    args = block_gather_args(*p, src, out)
+
+    def launch():
+        rc = lib.block_gather_launch(*args)
+        assert rc == 0, lib.block_copy_error_string(rc).decode()
+
+    t = time_rounds({
+        "wrapper": lambda: block_gather(*p, src, out_rows, out=out),
+        "launch": launch,
+        "plain": lambda: block_gather_ref(*p, src, out_rows, out=out),
+        "library": lambda: torch.index_select(src, 0, idx, out=out[:filled]),
+    }, reps)
+    k_ms, launch_ms, p_ms, l_ms = (statistics.median(t[k]) for k in ("wrapper", "launch", "plain", "library"))
+    dev_ms = device_ms(launch)
+    m = min(filled, src.shape[0])
+    copy_ms = device_ms(lambda: out[:m].copy_(src[:m]))
     row_bytes = src.shape[1] * src.element_size()
     b_ms = (2 * filled * row_bytes + 12 * segments) / HBM_BYTES_PER_S * 1e3
     log(f"  block_gather at {label}: every receiver ({len(plans)}, {segments} segments each) equal to "
-        f"block_gather_ref; receiver {j} ({filled} rows of {row_bytes} B): {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms")
-    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "rows": filled, "row_bytes": row_bytes}
+        f"block_gather_ref; receiver {j} ({filled} rows of {row_bytes} B): {k_ms:.4f} ms (the launch alone "
+        f"{launch_ms:.4f} ms, on the device {dev_ms:.4f} ms against {copy_ms:.4f} ms for one contiguous copy of "
+        f"as many bytes), plain {p_ms:.4f} ms, library {l_ms:.4f} ms, bound {b_ms:.4g} ms; by round, wrapper {' '.join(f'{x:.4f}' for x in t['wrapper'])}, launch "
+        f"{' '.join(f'{x:.4f}' for x in t['launch'])}")
+    del out, idx
+    return {"ms": k_ms, "launch_ms": launch_ms, "device_ms": dev_ms, "copy_ms": copy_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "rows": filled, "row_bytes": row_bytes}
 
 
 def check_k1_columnar(device, label: str, args) -> dict:
@@ -1083,12 +1180,19 @@ def ring_rows(device, n, slot, lane, gen):
                          generator=gen, device=device)
 
 
-def combine_staging(device, n, slot, cspec, gen, fill=0.5, distinct=False):
+#: NaNs of three bit patterns: np.nan, another positive one, a negative one
+#: (x86's 0/0); min and max pass on the bits of the NaN they pick
+NANS = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000], np.uint32).view(np.float32)
+
+
+def combine_staging(device, n, slot, cspec, gen, fill=0.5, distinct=False, signed=False):
     """Slot staging of ``[key | payload | count]`` rows made on the card: each
     sender region holds a valid prefix of up to ``fill * slot`` rows (its
     length random), all-zero rows after it.  Keys lie below G — distinct
     inside a region when asked — and about one in 64 is a key >= 2**31,
-    outside every domain, which no group may take."""
+    outside every domain, which no group may take.  ``signed``: float values
+    drawn from {-0.0, +0.0, -1.5, 2.5} and ``NANS``, four in five a zero of
+    either sign, so that groups meet both zeros in both orders, and NaN."""
     from sparkucx_tpu_torch.ops.compress import quantize_rows
 
     total, g = n * n * slot, cspec.num_groups
@@ -1109,6 +1213,11 @@ def combine_staging(device, n, slot, cspec, gen, fill=0.5, distinct=False):
                                 dtype=torch.int32)
     else:
         vals = torch.randn((total, cspec.width), generator=gen, device=device) * 100
+        if signed:
+            pool = torch.cat([torch.tensor([-0.0, 0.0, -1.5, 2.5]), torch.from_numpy(NANS)]).to(device)
+            pick = torch.randint(0, pool.numel(), (total, cspec.width), generator=gen, device=device)
+            zero = torch.rand((total, cspec.width), generator=gen, device=device) < 0.8
+            vals = pool[torch.where(zero, pick % 2, pick)]
         payload = vals if cspec.qspec is None else quantize_rows(cspec.qspec, vals).view(torch.float32)
         payload = payload.view(torch.int32)
     bits = ((keys + 2**31) % 2**32 - 2**31).to(torch.int32)  # the uint32 key's pattern
@@ -1143,7 +1252,9 @@ def check_ring_kernels(device, big=True) -> None:
         for chunks in (1, 2, 4):
             k3_case("", n, chunks, 1000 * chunks, 9)
         k3_case("16-byte words", n, 2, 512, 128)
-    k3_case("executor limit", MAX_EXECUTORS, 2, 64, 128)
+    for n in (MAX_EXECUTORS, MAX_EXECUTORS + 1, 2 * MAX_EXECUTORS + 2):  # one, two and three receiver groups
+        k3_case(f"{-(-n // MAX_EXECUTORS)} receiver group(s)", n, 2, 4, 9)
+    k3_case("2 receiver groups, 16-byte words", MAX_EXECUTORS + 1, 2, 8, 128)
     # a staging view 4 bytes past a 16-byte boundary: the 4-byte word path
     n, slot, lane = 4, 4096, 128
     flat = ring_rows(device, 1, 1, n * n * slot * lane + 1, gen).view(-1)
@@ -1159,8 +1270,8 @@ def check_ring_kernels(device, big=True) -> None:
         k3_case(f"{16 * slot * 512 / 2**30:.2f} GiB grid (past 2**31 B)", 4, 2, slot, 128)
         torch.cuda.empty_cache()
 
-    def k4_case(name, n, chunks, slot, cspec, fill=0.5, distinct=False):
-        data = combine_staging(device, n, slot, cspec, gen, fill=fill, distinct=distinct)
+    def k4_case(name, n, chunks, slot, cspec, fill=0.5, distinct=False, signed=False):
+        data = combine_staging(device, n, slot, cspec, gen, fill=fill, distinct=distinct, signed=signed)
         steps = ring_schedule(n, chunks).raw_steps()
         w = slot // chunks
         grid, av, ac = ring_combine_grid(n, slot, w, steps, cspec, data)
@@ -1172,6 +1283,9 @@ def check_ring_kernels(device, big=True) -> None:
         assert torch.equal(grid.view(torch.int32), pg.view(torch.int32)), f"ring_combine_grid {name}: grid"
         assert torch.equal(ac, pc), f"ring_combine_grid {name}: counts"
         assert torch.equal(av.view(torch.int32), pv.view(torch.int32)), f"ring_combine_grid {name}: values"
+        if signed:  # a NaN of other bits than np.nan's came out of the min and max columns
+            other = torch.from_numpy(NANS[1:].view(np.int32).copy()).to(device)
+            assert bool(torch.isin(av.view(torch.int32), other).any()), f"{name}: no NaN of other bits came out"
         q = cspec.quantize_mode if cspec.quantize_mode != "off" else np.dtype(cspec.dtype).name
         log(f"  ring_combine_grid  {name:<34} n={n} chunks={chunks} G={cspec.num_groups:>8} "
             f"{q:<10} {ring_combine_tier(cspec):<6} tier  equal, two runs bit-equal")
@@ -1190,6 +1304,19 @@ def check_ring_kernels(device, big=True) -> None:
     k4_case("G = 2**20, duplicate keys", 4, 2, 1 << 16, CombineSpec(1 << 20, ("sum", "min", "max"), np.int32))
     k4_case("G = 2**20, distinct keys", 4, 2, 1 << 16, CombineSpec(1 << 20, ("sum", "max"), np.float32),
             distinct=True)
+    # min and max on the JAX package's order: both zeros in both orders, and NaN, on both tiers
+    # (the global tier's atomic fold without a float sum, its ordered fold with one)
+    k4_case("+-0 and NaN, distinct keys", 4, 2, 4096, CombineSpec(8, ("min", "max", "sum"), np.float32),
+            distinct=True, signed=True)
+    k4_case("+-0 and NaN, duplicate keys", 4, 2, 4096, CombineSpec(8, ("max", "min"), np.float32), signed=True)
+    k4_case("G = 2**20, +-0 and NaN, duplicates", 4, 2, 1 << 16, CombineSpec(1 << 20, ("min", "max"), np.float32),
+            signed=True)
+    k4_case("G = 2**20, +-0 and NaN, float sum", 4, 2, 1 << 16,
+            CombineSpec(1 << 20, ("sum", "min", "max"), np.float32), distinct=True, signed=True)
+    # the global tier past one receiver group (n = 65, tiny slots)
+    k4_case("G = 2**14, 2 receiver groups", MAX_EXECUTORS + 1, 2, 8, CombineSpec(1 << 14, ("sum", "max"), np.int32))
+    k4_case("G = 2**14, 2 receiver groups, float sum", MAX_EXECUTORS + 1, 2, 8,
+            CombineSpec(1 << 14, ("sum", "max"), np.float32), distinct=True)
     if big:
         slot = 7_000_000  # 4 x 4 x 7,000,000 rows of 20 B = 2.24 GB
         k4_case(f"{16 * slot * 20 / 2**30:.2f} GiB grid (past 2**31 B)", 4, 2, slot,
@@ -1257,8 +1384,11 @@ def q1_lineitem(seed: int, rows: int = Q1_ROWS):
 
 def k4_timings(device, args) -> dict:
     """K4 at the recorded call's shapes: held against its plain version
-    (bit-equal), timed beside it, beside one ``scatter_reduce_`` per column
-    over the whole landed grid and beside its byte bound."""
+    (bit-equal), on the global tier run once more under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the call
+    raises), timed beside its plain version, beside one
+    ``scatter_reduce_`` per column over the whole landed grid and beside its
+    byte bound."""
     from sparkucx_tpu_torch.ops.combine import _REDUCE
     from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_grid_ref, ring_combine_tier
     from sparkucx_tpu_torch.ops.sort import key_values
@@ -1272,8 +1402,16 @@ def k4_timings(device, args) -> dict:
               max_abs_err(av.view(torch.int32), pv.view(torch.int32)), max_abs_err(ac, pc))
     assert err == 0, "ring_combine_grid at the path's shapes differs from its plain version"
     del pg, pv, pc
+    if ring_combine_tier(cspec) == "global":  # the global tier's call never waits for the device
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ring_combine_grid(n, slot, w, steps, cspec, data)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     torch.cuda.empty_cache()
     k_ms = time_ms(lambda: ring_combine_grid(n, slot, w, steps, cspec, data), 5)
+    dev_ms = device_ms(lambda: ring_combine_grid(n, slot, w, steps, cspec, data), 5)
     p_ms = time_ms(lambda: ring_combine_grid_ref(n, slot, w, steps, cspec, data), 2)
     # the library yardstick: the landed grid folded by scatter_reduce_, one call per column
     g = cspec.num_groups
@@ -1301,7 +1439,8 @@ def k4_timings(device, args) -> dict:
         "launches": None, "max_abs_err": err,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": l_ms,
-        "shape": f"n={n}, {n * n * slot} rows of {data.shape[1] * 4} B, G={g}, {ring_combine_tier(cspec)} tier",
+        "shape": f"n={n}, {n * n * slot} rows of {data.shape[1] * 4} B, G={g}, {ring_combine_tier(cspec)} tier; "
+                 f"on the device {dev_ms:.4f} ms",
     }
 
 

@@ -7,11 +7,12 @@
 //     every executor's sender-major grid out.  Receiver j's grid row
 //     i*slot + c*w holds sender i's row j*slot + c*w: the own slot and one window
 //     per schedule item (offset d, chunk c) from sender (j - d) mod n.
-//   * ring_fold_launch + ring_merge_launch (shared tier), or ring_exchange_launch
-//     + the ring_round_launch rounds (global tier) <- ring_combine_grid
-//     (kernel :720): the same grid, and every landed window of
-//     [key | payload | count] rows folded into receiver j's dense accumulator
-//     (G, width) + counts (G, 1), own slot first, then the items in step order.
+//   * ring_fold_launch + ring_merge_launch (shared tier), or ring_acc_launch and
+//     ring_combine_global_launch, or ring_exchange_launch + ring_ordered_fold_launch
+//     (global tier) <- ring_combine_grid (kernel :720): the same grid, and every
+//     landed window of [key | payload | count] rows folded into receiver j's dense
+//     accumulator (G, width) + counts (G, 1), own slot first, then the items in
+//     step order.
 //   * fused_scatter_launch               <- fused_scatter_ring_grid (:805, kernel
 //     :850): K2's scatter of every executor's packed map-output blocks into its
 //     slot-layout staging (in place: the JAX kernel aliased staging to its second
@@ -19,10 +20,11 @@
 //
 // The Python side (ops/ring_kernels.py) turns the schedule into a window table,
 // receiver-major and in that canonical order within a receiver, 5 int64 a window:
-// (receiver, sender, src_row, dst_row, rows).  Executors' staging and grids are
-// addressed through tables of pointers, one per executor (K3 carries its tables
-// in the launch's parameters, K4's fold and K5 read them from device memory), so
-// the same kernels can later take peer pointers.
+// (receiver, sender, src_row, dst_row, rows).  Receivers' grids are addressed
+// through tables of pointers, one per receiver (K3 carries its table in the
+// launch's parameters, at most kMaxExecs receivers a launch; K4's shared tier and
+// K5 read theirs from device memory), so the same kernels can later take peer
+// pointers.
 //
 // Bound: bytes.  K3 reads every staged row once and writes it once
 // (2 * n * n * slot * row_bytes).  K4 moves the same bytes plus its O(groups)
@@ -38,9 +40,13 @@
 // K3's design.  A pure copy at the memory's rate needs the card's bytes in flight
 // (about latency x bandwidth, some 25 KB an SM) and no per-call host work.  The
 // window table and its row prefix depend only on the schedule, so the wrapper keeps
-// them on the device (a bounded cache) and passes the executors' staging and grid
-// base pointers by value, in the launch's parameters (at most kMaxExecs executors);
-// a call uploads nothing.  The windows, laid end to end in table order, form one
+// them on the device (a bounded cache) and passes the receivers' grid pointers by
+// value, in the launch's parameters, with the senders' staging as one base and
+// stride; a call uploads nothing.  A launch addresses at most kMaxExecs receivers:
+// the windows of receivers [first, first + kMaxExecs) are contiguous in the
+// receiver-major table, so a call launches the same kernel once per such group,
+// at an offset into the table and its prefix (any number of executors, as the
+// TPU kernel takes; one launch up to kMaxExecs).  The windows, laid end to end in table order, form one
 // byte stream cut into kChunkBytes chunks, one CTA a chunk, as a large device copy
 // is cut: the hardware keeps up to 8 of these CTAs on an SM and starts the next one
 // as one ends, so an SM keeps up to 128 KB of loads in flight.  A CTA finds its
@@ -78,6 +84,13 @@
 // the row width or a pointer is not 16-byte aligned), then folded while its rows
 // are still in L1.  All offsets are 64-bit.
 //
+// Min and max fold on the JAX package's order (XLA's minimum/maximum): -0.0 lies
+// below +0.0, and a NaN anywhere makes the result that NaN, its bits passed on.
+// Float32 compares on fold_key, an int image of the bits with every NaN past the
+// numbers on the fold's side (ops/combine.py fold_key), a total order, so the
+// fold is associative and commutative and its bits do not depend on the order it
+// meets the rows in.
+//
 // The fold is deterministic and uses no float atomics.  Shared-memory tier
 // (G * (width + 1) words fit in shared memory): a CTA folds its span into a
 // dense partial in shared memory, tile by tile; inside a tile each warp merges
@@ -86,14 +99,30 @@
 // a scratch table, and ring_merge_kernel folds, per (receiver, group, lane),
 // the spans of a window in order into a window partial and the windows in
 // canonical order into the accumulator: acc = op(acc, window), the structure
-// of the JAX fold acc + sum(window).  Global tier (larger G, e.g. 2^23 groups):
-// the grid is copied first (K3's launch), then each canonical window index is folded in
-// rounds: every pending valid row bids its row index for its group with an
-// integer atomicMin, the lowest bidder applies its row to the accumulator with
-// plain loads and stores, and the rest wait for the next round.  A window whose
-// keys are distinct folds in one round; duplicates fold in row order, one row
-// per group and round.  Integer folds are bit-equal to the plain version
-// always, float folds whenever no key repeats inside a window.  Quantized
+// of the JAX fold acc + sum(window).  Global tier (larger G, e.g. 2^23 groups, the
+// accumulator in device memory): one call issues a fixed number of launches and
+// never waits for the device (ring_acc_launch writes the identities first).
+//   * No float sum column (int32 sums, the counts, min and max): the fold does not
+//     depend on the order, since int32 addition wraps exactly and min/max are
+//     total orders, so K3's chunk kernel folds while it copies: after copying its
+//     chunk, a CTA folds every row whose first byte lies in the chunk, read back
+//     from the staging it just read (in L1 or L2), into the accumulator with integer
+//     atomics (atomicAdd, atomicMin/Max; float min/max a compare-and-swap loop
+//     round fold that ends without a write once the value there wins).  One
+//     launch a group of receivers, one pass over the bytes.
+//   * A float sum column keeps the canonical order, own slot first, then the
+//     windows in step order, rows in row order: K3 lands the group's grid, then
+//     one cooperative launch loops on the device over window index and round.
+//     In a round every pending valid row bids its row index for its group with
+//     an integer atomicMin, a grid barrier (K5's counter barrier), then the
+//     lowest bidder applies its whole row with plain loads and stores and the
+//     rest raise `pending` (the last round in which a row waited), a barrier,
+//     and every CTA reads `pending` to decide whether another round follows.
+//     A window whose keys are distinct folds in one round; duplicates fold in
+//     row order, one row per group and round.
+// Integer folds are bit-equal to the plain version always, float folds whenever
+// no key repeats inside a window (the plain version's scatter_reduce_ sums
+// duplicates in its own order).  Quantized
 // payloads are dequantized in the kernel exactly as dequantize_rows does:
 // q * scale rounded once in float32 (__fmul_rn, never contracted into an FMA).
 
@@ -152,13 +181,29 @@ __device__ __forceinline__ float identity<float>(int op) {
   return op == kMin ? FLT_MAX : (op == kMax ? -FLT_MAX : 0.0f);
 }
 
-// op(a, b) with a the running value: min/max keep a on ties, as torch's
-// scatter_reduce amin/amax and torch.minimum/maximum do.
-template <typename T>
-__device__ __forceinline__ T fold(int op, T a, T b) {
+// How far a min (+) or max (-) fold_key turns the ordered image round the int32
+// range: the 2^23 - 1 NaNs of one sign then pass its end.
+constexpr uint32_t kNanSpan = 0x7fffffu;
+
+// An int image of a float's bits that orders as the floats do, -0.0 below +0.0,
+// turned so that every NaN lies below -inf for min and above +inf for max
+// (ops/combine.py fold_key); one key a bit pattern.
+__device__ __forceinline__ int fold_key(int op, float v) {
+  const int b = __float_as_int(v);
+  const uint32_t image = static_cast<uint32_t>(b ^ ((b >> 31) & 0x7fffffff));
+  return static_cast<int>(op == kMin ? image + kNanSpan : image - kNanSpan);
+}
+
+// op(a, b) with a the running value.
+__device__ __forceinline__ int fold(int op, int a, int b) {
   if (op == kSum) return add(a, b);
   if (op == kMin) return b < a ? b : a;
   return a < b ? b : a;
+}
+__device__ __forceinline__ float fold(int op, float a, float b) {
+  if (op == kSum) return add(a, b);
+  const bool take_b = op == kMin ? fold_key(op, b) < fold_key(op, a) : fold_key(op, a) < fold_key(op, b);
+  return take_b ? b : a;
 }
 
 // Lane `lane` of the accumulator: a value column (lane < width) or the count.
@@ -166,7 +211,7 @@ template <typename T>
 __device__ __forceinline__ uint32_t fold_bits(const Ops& ops, int width, int lane, uint32_t a,
                                               uint32_t b) {
   if (lane == width) return to_bits(add(from_bits<int>(a), from_bits<int>(b)));
-  return to_bits(fold<T>(ops.op[lane], from_bits<T>(a), from_bits<T>(b)));
+  return to_bits(fold(ops.op[lane], from_bits<T>(a), from_bits<T>(b)));
 }
 
 template <typename T>
@@ -216,19 +261,28 @@ __device__ __forceinline__ void copy_words(const Word* __restrict__ src, Word* _
 
 // -- K3 -------------------------------------------------------------------------
 
-constexpr int kMaxExecs = 64;          // executors whose pointers one K3 launch carries
+constexpr int kMaxExecs = 64;          // receivers whose grid pointers one K3 launch carries
 constexpr int kCopyThreads = 256;
 constexpr int kChunkBytes = 32 * 1024; // the bytes of the stream one CTA copies
 constexpr int kVectorUnroll = 4;       // 16-byte loads in flight a thread
 
 struct RingCopyArgs {
-  const long long* windows;    // (num_windows, kWindowWords), the wrapper's cached table
-  const long long* row_start;  // (num_windows + 1) rows before each window, in table order
-  int num_windows;
-  int num_execs;
+  const long long* windows;    // the group's first window of the wrapper's cached table
+  const long long* row_start;  // its entry of the table's row prefix (rows before each window)
+  int num_windows;             // windows of the group
+  int first_receiver;          // the receiver of dst[0]
   long long row_bytes;
-  const uint8_t* src[kMaxExecs];  // executor i's staging
-  uint8_t* dst[kMaxExecs];        // receiver j's grid
+  const uint8_t* src;          // executor i's staging at src + i * exec_bytes
+  long long exec_bytes;
+  uint8_t* dst[kMaxExecs];     // receiver first_receiver + k's grid
+};
+
+// K4's global tier, when K3's kernel folds as it copies (an order-free fold).
+struct GlobalFold {
+  Ops ops;
+  FoldGeometry g;
+  uint32_t* acc_vals;  // (receivers, G, width)
+  int* acc_counts;     // (receivers, G)
 };
 
 // All the CTA's threads copy n bytes as Words, kUnroll loads in flight a thread.
@@ -248,11 +302,11 @@ __device__ __forceinline__ void copy_piece(const uint8_t* s, uint8_t* d, long lo
   for (; k < words; k += kCopyThreads) dw[k] = sw[k];
 }
 
-// The window holding byte `at` of the stream of windows: its bounds in the stream
-// and its source and destination bases.
+// The window holding byte `at` of the stream of windows: its bounds in the stream,
+// its receiver and its source and destination bases.
 struct WindowCursor {
   int v;
-  long long begin, end;
+  long long begin, end, receiver;
   const uint8_t* src;
   uint8_t* dst;
 
@@ -261,20 +315,61 @@ struct WindowCursor {
     begin = __ldg(a.row_start + v) * a.row_bytes;
     end = __ldg(a.row_start + v + 1) * a.row_bytes;
     const long long* win = a.windows + static_cast<long long>(v) * kWindowWords;
-    src = a.src[__ldg(win + 1)] + __ldg(win + 2) * a.row_bytes;
-    dst = a.dst[__ldg(win + 0)] + __ldg(win + 3) * a.row_bytes;
+    receiver = __ldg(win + 0);
+    src = a.src + __ldg(win + 1) * a.exec_bytes + __ldg(win + 2) * a.row_bytes;
+    dst = a.dst[receiver - a.first_receiver] + __ldg(win + 3) * a.row_bytes;
   }
 };
 
-// One CTA a chunk of the stream; the chunk may cross from one window into the next.
-__global__ void __launch_bounds__(kCopyThreads) ring_exchange_kernel(const __grid_constant__ RingCopyArgs a) {
+// op into *p, atomically; the op does not depend on the order the rows come in.
+__device__ __forceinline__ void atomic_fold(int op, uint32_t* p, int v) {
+  int* q = reinterpret_cast<int*>(p);
+  if (op == kSum) {
+    atomicAdd(q, v);
+  } else if (op == kMin) {
+    atomicMin(q, v);
+  } else {
+    atomicMax(q, v);
+  }
+}
+// Float min/max (float sums never come here: the launcher refuses them): a
+// compare-and-swap loop round fold, which stops without a write once the value
+// already there wins.
+__device__ __forceinline__ void atomic_fold(int op, uint32_t* p, float v) {
+  uint32_t seen = *reinterpret_cast<volatile uint32_t*>(p);
+  for (;;) {
+    const uint32_t want = __float_as_uint(fold(op, __uint_as_float(seen), v));
+    if (want == seen) return;
+    const uint32_t prev = atomicCAS(p, seen, want);
+    if (prev == seen) return;
+    seen = prev;
+  }
+}
+
+template <typename T, bool kQuant>
+__device__ __forceinline__ void fold_row_atomic(const uint32_t* row, long long receiver,
+                                                const GlobalFold& f) {
+  const uint32_t key = row[0];
+  const int count = static_cast<int>(row[f.g.lanes - 1]);
+  if (count <= 0 || key >= static_cast<uint32_t>(f.g.num_groups)) return;
+  const long long slot = receiver * f.g.num_groups + key;
+  uint32_t* v = f.acc_vals + slot * f.g.width;
+  for (int c = 0; c < f.g.width; ++c) atomic_fold(f.ops.op[c], v + c, load_value<T, kQuant>(row, c, f.g));
+  atomicAdd(f.acc_counts + slot, count);
+}
+
+// One CTA a chunk of the group's stream; the chunk may cross from one window into
+// the next.  kFold: then fold every row whose first byte lies in the chunk.
+template <bool kFold, typename T, bool kQuant>
+__global__ void __launch_bounds__(kCopyThreads)
+ring_exchange_kernel(const __grid_constant__ RingCopyArgs a, const __grid_constant__ GlobalFold f) {
   const long long total = __ldg(a.row_start + a.num_windows) * a.row_bytes;
-  long long at = static_cast<long long>(blockIdx.x) * kChunkBytes;
-  const long long stop = min(at + kChunkBytes, total);
-  int lo = 0, hi = a.num_windows - 1;  // the last window starting at or before `at`
+  const long long first = __ldg(a.row_start) * a.row_bytes + static_cast<long long>(blockIdx.x) * kChunkBytes;
+  const long long stop = min(first + kChunkBytes, total);
+  int lo = 0, hi = a.num_windows - 1;  // the last window starting at or before `first`
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
-    if (__ldg(a.row_start + mid) * a.row_bytes <= at) {
+    if (__ldg(a.row_start + mid) * a.row_bytes <= first) {
       lo = mid;
     } else {
       hi = mid - 1;
@@ -282,7 +377,7 @@ __global__ void __launch_bounds__(kCopyThreads) ring_exchange_kernel(const __gri
   }
   WindowCursor w;
   w.load(a, lo);
-  while (at < stop) {
+  for (long long at = first; at < stop;) {
     while (at >= w.end) w.load(a, w.v + 1);
     const long long n = min(stop, w.end) - at;
     const uint8_t* s = w.src + (at - w.begin);
@@ -295,6 +390,35 @@ __global__ void __launch_bounds__(kCopyThreads) ring_exchange_kernel(const __gri
     }
     at += n;
   }
+  if constexpr (kFold) {
+    w.load(a, lo);
+    for (long long at = first; at < stop;) {
+      while (at >= w.end) w.load(a, w.v + 1);
+      const long long piece_end = min(stop, w.end);
+      const long long r0 = (at - w.begin + a.row_bytes - 1) / a.row_bytes;
+      const long long r1 = (piece_end - w.begin + a.row_bytes - 1) / a.row_bytes;
+      for (long long r = r0 + threadIdx.x; r < r1; r += kCopyThreads) {
+        fold_row_atomic<T, kQuant>(reinterpret_cast<const uint32_t*>(w.src + r * a.row_bytes),
+                                   w.receiver, f);
+      }
+      at = piece_end;
+    }
+  }
+}
+
+// Every CTA of the (co-resident) grid arrives before any leaves.  The counter only
+// grows: a launch's arrivals take it from k * gridDim.x to (k + 1) * gridDim.x, so
+// launches of one grid size in stream order can reuse it without a reset.
+__device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int before = atomicAdd(arrived, 1u);
+    const unsigned int target = (before / gridDim.x + 1) * gridDim.x;
+    while (*reinterpret_cast<volatile unsigned int*>(arrived) < target) __nanosleep(64);
+    __threadfence();
+  }
+  __syncthreads();
 }
 
 // K4's copy and shared-memory fold.  One CTA a span, grid-stride.
@@ -352,7 +476,7 @@ ring_span_kernel(const long long* __restrict__ windows, const long long* __restr
           T acc = identity<T>(ops.op[c]);
           for (int l = 0; l < 32; ++l) {
             const T other = __shfl_sync(0xffffffffu, v, l);
-            if ((peers >> l) & 1u) acc = fold<T>(ops.op[c], acc, other);
+            if ((peers >> l) & 1u) acc = fold(ops.op[c], acc, other);
           }
           merged[c] = acc;
         }
@@ -366,7 +490,7 @@ ring_span_kernel(const long long* __restrict__ windows, const long long* __restr
         if (warp == wi && leader) {
           uint32_t* p = part + static_cast<long long>(key) * (g.width + 1);
           for (int c = 0; c < g.width; ++c) {
-            p[c] = to_bits(fold<T>(ops.op[c], from_bits<T>(p[c]), merged[c]));
+            p[c] = to_bits(fold(ops.op[c], from_bits<T>(p[c]), merged[c]));
           }
           p[g.width] = to_bits(add(from_bits<int>(p[g.width]), merged_count));
         }
@@ -411,60 +535,89 @@ ring_merge_kernel(const long long* __restrict__ span_start, int num_receivers,
   }
 }
 
-// K4, global tier: the rows of canonical window `index` of every receiver,
-// read from the landed grids (receiver j's at grid + j * grid_bytes).  grid.y =
-// receiver.
-struct RoundArgs {
-  const long long* windows;
+// K4, global tier, with a float sum column: a group of receivers' windows folded in
+// canonical order (own slot, windows in step order, rows in row order) from the
+// grids K3 landed, in one cooperative launch (module note).
+struct OrderedArgs {
+  const long long* windows;  // the group's first window (receiver-major)
   int windows_per_receiver;
-  int index;
-  const uint8_t* grid;
-  long long grid_bytes;
+  int num_receivers;         // receivers of the group
+  const uint8_t* grid;       // receiver j's grid at grid + j * exec_bytes
+  long long exec_bytes;
   long long row_bytes;
-  long long max_rows;  // rows of the largest window of this index
-  uint8_t* done;       // (receivers, max_rows) rows already folded
-  int* owner;          // (receivers, G) lowest pending row per group, INT_MAX = none
-  int* pending;        // set when a row has to wait for the next round
+  long long max_rows;        // rows of the own slot, the largest window
+  int* done;                 // (all receivers, max_rows): window index + 1 once folded
+  int* owner;                // (all receivers, G): lowest pending row per group, INT_MAX = none
+  unsigned int* arrived;     // grid barrier counter
+  unsigned int* pending;     // the last round in which a row had to wait
 };
 
-template <bool kApply, typename T, bool kQuant>
+template <typename T, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-ring_round_kernel(RoundArgs a, Ops ops, FoldGeometry g, uint32_t* __restrict__ acc_vals,
-                  int* __restrict__ acc_counts) {
-  const int j = blockIdx.y;
-  const long long* win =
-      a.windows + (static_cast<long long>(j) * a.windows_per_receiver + a.index) * kWindowWords;
-  const long long rows = win[4];
-  const uint8_t* base = a.grid + j * a.grid_bytes + win[3] * a.row_bytes;
-  uint8_t* done = a.done + j * a.max_rows;
-  int* owner = a.owner + static_cast<long long>(j) * g.num_groups;
-  for (long long r = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; r < rows;
-       r += static_cast<long long>(gridDim.x) * blockDim.x) {
-    if (done[r]) continue;
-    const uint32_t* row = reinterpret_cast<const uint32_t*>(base + r * a.row_bytes);
-    const uint32_t key = row[0];
-    const int count = static_cast<int>(row[g.lanes - 1]);
-    if (count <= 0 || key >= static_cast<uint32_t>(g.num_groups)) {
-      done[r] = 1;
-      continue;
+ring_ordered_fold_kernel(OrderedArgs a, Ops ops, FoldGeometry g, uint32_t* __restrict__ acc_vals,
+                         int* __restrict__ acc_counts) {
+  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  unsigned int round = 0;
+  for (int index = 0; index < a.windows_per_receiver; ++index) {
+    const int stamp = index + 1;
+    const long long rows = __ldg(a.windows + static_cast<long long>(index) * kWindowWords + 4);
+    const long long total = rows * a.num_receivers;
+    bool more = true;
+    while (more) {
+      ++round;
+      for (int apply = 0; apply < 2; ++apply) {
+        // (receiver of the group, row) pairs; a thread meets the same rows every round
+        for (long long i = first; i < total; i += stride) {
+          const long long k = i / rows, r = i - k * rows;
+          const long long* win =
+              a.windows + (k * a.windows_per_receiver + index) * kWindowWords;
+          const long long j = __ldg(win + 0);
+          int* done = a.done + j * a.max_rows + r;
+          if (*done == stamp) continue;
+          const uint32_t* row = reinterpret_cast<const uint32_t*>(
+              a.grid + j * a.exec_bytes + (__ldg(win + 3) + r) * a.row_bytes);
+          const uint32_t key = row[0];
+          const int count = static_cast<int>(row[g.lanes - 1]);
+          if (count <= 0 || key >= static_cast<uint32_t>(g.num_groups)) {
+            *done = stamp;
+            continue;
+          }
+          const long long slot = j * g.num_groups + key;
+          int* bid = a.owner + slot;
+          if (!apply) {
+            atomicMin(bid, static_cast<int>(r));
+            continue;
+          }
+          // owner and the accumulator change under other SMs within this launch: read
+          // them through L2 (__ldcg), never from a stale L1 line
+          if (__ldcg(bid) != static_cast<int>(r)) {
+            atomicMax(a.pending, round);
+            continue;
+          }
+          uint32_t* v = acc_vals + slot * g.width;
+          for (int c = 0; c < g.width; ++c) {
+            v[c] = to_bits(fold(ops.op[c], from_bits<T>(__ldcg(v + c)), load_value<T, kQuant>(row, c, g)));
+          }
+          acc_counts[slot] = add(__ldcg(acc_counts + slot), count);
+          *done = stamp;
+          *bid = INT_MAX;
+        }
+        grid_barrier(a.arrived);
+      }
+      more = *reinterpret_cast<volatile unsigned int*>(a.pending) >= round;
     }
-    int* bid = owner + key;
-    if (!kApply) {
-      atomicMin(bid, static_cast<int>(r));
-      continue;
-    }
-    if (*bid != static_cast<int>(r)) {
-      *a.pending = 1;
-      continue;
-    }
-    const long long slot = static_cast<long long>(j) * g.num_groups + key;
-    uint32_t* v = acc_vals + slot * g.width;
-    for (int c = 0; c < g.width; ++c) {
-      v[c] = to_bits(fold<T>(ops.op[c], from_bits<T>(v[c]), load_value<T, kQuant>(row, c, g)));
-    }
-    acc_counts[slot] = add(acc_counts[slot], count);
-    done[r] = 1;
-    *bid = INT_MAX;
+  }
+}
+
+// K4, global tier: every value lane's fold identity.
+__global__ void __launch_bounds__(kThreads)
+ring_acc_kernel(int is_float, Ops ops, int width, long long slots, uint32_t* acc_vals) {
+  const long long total = slots * width;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int op = ops.op[i % width];
+    acc_vals[i] = is_float ? to_bits(identity<float>(op)) : to_bits(identity<int>(op));
   }
 }
 
@@ -565,21 +718,6 @@ __device__ __forceinline__ void copy_words_cg(const Word* src, Word* dst, long l
   for (; k < words; k += kThreads) dst[k] = __ldcg(src + k);
 }
 
-// Every CTA of the (co-resident) grid arrives before any leaves.  The counter only
-// grows: a launch's arrivals take it from k * gridDim.x to (k + 1) * gridDim.x, so
-// launches of one grid size in stream order can reuse it without a reset.
-__device__ __forceinline__ void grid_barrier(unsigned int* arrived) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int before = atomicAdd(arrived, 1u);
-    const unsigned int target = (before / gridDim.x + 1) * gridDim.x;
-    while (*reinterpret_cast<volatile unsigned int*>(arrived) < target) __nanosleep(64);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 template <typename Word>
 __global__ void __launch_bounds__(kThreads) fused_scatter_ring_kernel(FusedArgs a) {
   __shared__ rowcopy::Scratch sh;
@@ -599,7 +737,7 @@ __global__ void __launch_bounds__(kThreads) fused_scatter_ring_kernel(FusedArgs 
     const long long end = min(begin + rows_per_cta, total);
     if (begin >= end) continue;
     const long long plan = static_cast<long long>(e) * a.num_blocks;
-    rowcopy::copy_packed_rows<Word, false>(
+    rowcopy::copy_packed_rows<Word>(
         a.starts + plan, a.counts + plan, a.outs + plan, a.num_blocks,
         reinterpret_cast<const Word*>(a.packed[e]), reinterpret_cast<Word*>(a.staging[e]), begin,
         end, a.staging_rows, words_per_row, sh);
@@ -652,37 +790,166 @@ int launch_fused(FusedArgs a, cudaStream_t stream) {
       args, 0, stream));
 }
 
+// One group's K3 launch arguments: the windows [first_window, first_window +
+// num_windows) of the table, whose receivers are [first_receiver, first_receiver +
+// num_receivers).  Returns 0, or the error of arguments that do not fit.
+int copy_args(const long long* table, int table_windows, int first_window, int num_windows,
+              int first_receiver, int num_receivers, long long src_base, long long dst_base,
+              long long exec_bytes, long long row_bytes, RingCopyArgs* a) {
+  if (table == nullptr || table_windows < 1 || first_window < 0 || num_windows < 1 ||
+      first_window + num_windows > table_windows || first_receiver < 0 || num_receivers < 1 ||
+      num_receivers > kMaxExecs || row_bytes <= 0 || row_bytes % 4 != 0 || src_base == 0 ||
+      dst_base == 0 || exec_bytes < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  *a = RingCopyArgs{};
+  a->windows = table + static_cast<long long>(first_window) * kWindowWords;
+  a->row_start = table + static_cast<long long>(table_windows) * kWindowWords + first_window;
+  a->num_windows = num_windows;
+  a->first_receiver = first_receiver;
+  a->row_bytes = row_bytes;
+  a->src = reinterpret_cast<const uint8_t*>(src_base);
+  a->exec_bytes = exec_bytes;
+  for (int k = 0; k < num_receivers; ++k) {
+    a->dst[k] = reinterpret_cast<uint8_t*>(dst_base + (first_receiver + k) * exec_bytes);
+  }
+  return 0;
+}
+
+template <bool kFold, typename T, bool kQuant>
+int launch_copy(const RingCopyArgs& a, const GlobalFold& f, long long rows, cudaStream_t stream) {
+  const long long chunks = (rows * a.row_bytes + kChunkBytes - 1) / kChunkBytes;
+  if (chunks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  ring_exchange_kernel<kFold, T, kQuant><<<static_cast<unsigned>(chunks), kCopyThreads, 0, stream>>>(a, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of one cooperative ordered-fold launch: all that can be resident at once.
+template <typename T, bool kQuant>
+int ordered_grid_size(int* ctas) {
+  static int cached = 0;
+  if (cached == 0) {
+    int device = 0, cooperative = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_ordered_fold_kernel<T, kQuant>,
+                                                          kThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!cooperative || per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    cached = per_sm * sms;
+  }
+  *ctas = cached;
+  return 0;
+}
+
+template <typename T, bool kQuant>
+int launch_ordered(OrderedArgs a, Ops ops, FoldGeometry g, uint32_t* acc_vals, int* acc_counts,
+                   cudaStream_t stream) {
+  int ctas = 0;
+  const int rc = ordered_grid_size<T, kQuant>(&ctas);
+  if (rc != 0) return rc;
+  void* args[] = {&a, &ops, &g, &acc_vals, &acc_counts};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(ring_ordered_fold_kernel<T, kQuant>), dim3(ctas), dim3(kThreads),
+      args, 0, stream));
+}
+
 }  // namespace
 
 extern "C" {
 
-// K3: every window of the table (all n * n regions) in one launch.  `table` (device)
-// holds the (num_windows x 5) window table, then its (num_windows + 1) row prefix,
-// whose last entry is total_rows.  Executor i's staging starts at src_base + i *
-// exec_bytes and receiver j's grid at dst_base + j * exec_bytes; the launch carries
-// them as tables of pointers, by value.
-int ring_exchange_launch(const long long* table, int num_windows, long long total_rows,
-                         int num_execs, long long src_base, long long dst_base,
-                         long long exec_bytes, long long row_bytes, void* stream) {
-  if (num_windows <= 0 || total_rows <= 0) return 0;
-  if (table == nullptr || num_execs < 1 || num_execs > kMaxExecs || row_bytes <= 0 ||
-      row_bytes % 4 != 0 || src_base == 0 || dst_base == 0 || exec_bytes < 0) {
+// K3 for one group of at most kMaxExecs receivers: the windows [first_window,
+// first_window + num_windows) of `table` (device), which holds the (table_windows
+// x 5) window table, then its (table_windows + 1) row prefix; those windows are
+// receivers [first_receiver, first_receiver + num_receivers)'s and hold `rows`
+// rows.  Executor i's staging starts at src_base + i * exec_bytes and receiver j's
+// grid at dst_base + j * exec_bytes; the launch carries the group's grid pointers
+// by value.
+int ring_exchange_launch(const long long* table, int table_windows, int first_window,
+                         int num_windows, long long rows, int first_receiver, int num_receivers,
+                         long long src_base, long long dst_base, long long exec_bytes,
+                         long long row_bytes, void* stream) {
+  if (num_windows <= 0 || rows <= 0) return 0;
+  RingCopyArgs a;
+  const int rc = copy_args(table, table_windows, first_window, num_windows, first_receiver,
+                           num_receivers, src_base, dst_base, exec_bytes, row_bytes, &a);
+  if (rc != 0) return rc;
+  return launch_copy<false, int, false>(a, GlobalFold{}, rows, static_cast<cudaStream_t>(stream));
+}
+
+// K4 global tier, no float sum column: K3's launch for one group (the same
+// arguments), folding every landed row into acc_vals (receivers, G, width) and
+// acc_counts (receivers, G) with atomics as it copies.  The accumulator holds the
+// fold identities (ring_acc_launch) and the counts zeros before the first group.
+int ring_combine_global_launch(const long long* table, int table_windows, int first_window,
+                               int num_windows, long long rows, int first_receiver,
+                               int num_receivers, long long src_base, long long dst_base,
+                               long long exec_bytes, long long row_bytes, const int* ops, int width,
+                               int num_groups, int is_float, int qblock, int wq4, void* acc_vals,
+                               void* acc_counts, void* stream) {
+  if (num_windows <= 0 || rows <= 0) return 0;
+  RingCopyArgs a;
+  const int rc = copy_args(table, table_windows, first_window, num_windows, first_receiver,
+                           num_receivers, src_base, dst_base, exec_bytes, row_bytes, &a);
+  if (rc != 0) return rc;
+  GlobalFold f{make_ops(ops, width), FoldGeometry{num_groups, width, static_cast<int>(row_bytes / 4), qblock, wq4},
+               static_cast<uint32_t*>(acc_vals), static_cast<int*>(acc_counts)};
+  if (!check_geometry(f.g, is_float, row_bytes) || acc_vals == nullptr || acc_counts == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  RingCopyArgs a{};
-  a.windows = table;
-  a.row_start = table + static_cast<long long>(num_windows) * kWindowWords;
-  a.num_windows = num_windows;
-  a.num_execs = num_execs;
-  a.row_bytes = row_bytes;
-  for (int i = 0; i < num_execs; ++i) {
-    a.src[i] = reinterpret_cast<const uint8_t*>(src_base + i * exec_bytes);
-    a.dst[i] = reinterpret_cast<uint8_t*>(dst_base + i * exec_bytes);
+  for (int c = 0; c < width; ++c) {  // a float sum depends on the order: ring_ordered_fold_launch
+    if (is_float && f.ops.op[c] == kSum) return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long chunks = (total_rows * row_bytes + kChunkBytes - 1) / kChunkBytes;
-  if (chunks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  ring_exchange_kernel<<<static_cast<unsigned>(chunks), kCopyThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!is_float) return launch_copy<true, int, false>(a, f, rows, s);
+  if (qblock > 0) return launch_copy<true, float, true>(a, f, rows, s);
+  return launch_copy<true, float, false>(a, f, rows, s);
+}
+
+// K4 global tier with a float sum column: one group's windows (receiver-major,
+// from first_window, num_receivers * windows_per_receiver of them) folded in
+// canonical order from the grids K3 landed (receiver j's at grid_base + j *
+// exec_bytes), in one cooperative launch.  done (all receivers x max_rows int32)
+// and sync (the barrier counter) start at zero for the call, owner (all receivers
+// x G int32) at INT_MAX; pending is a zeroed word of this group's own.
+int ring_ordered_fold_launch(const long long* table, int first_window, int windows_per_receiver,
+                             int num_receivers, long long grid_base, long long exec_bytes,
+                             long long row_bytes, long long max_rows, void* done, void* owner,
+                             void* sync, void* pending, const int* ops, int width, int num_groups,
+                             int qblock, int wq4, void* acc_vals, void* acc_counts, void* stream) {
+  if (num_receivers <= 0 || windows_per_receiver <= 0 || max_rows <= 0) return 0;
+  FoldGeometry g{num_groups, width, static_cast<int>(row_bytes / 4), qblock, wq4};
+  if (table == nullptr || first_window < 0 || grid_base == 0 || exec_bytes < 0 ||
+      !check_geometry(g, 1, row_bytes) || done == nullptr || owner == nullptr || sync == nullptr ||
+      pending == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  OrderedArgs a{table + static_cast<long long>(first_window) * kWindowWords, windows_per_receiver,
+                num_receivers, reinterpret_cast<const uint8_t*>(grid_base), exec_bytes, row_bytes,
+                max_rows, static_cast<int*>(done), static_cast<int*>(owner),
+                static_cast<unsigned int*>(sync), static_cast<unsigned int*>(pending)};
+  const Ops o = make_ops(ops, width);
+  uint32_t* av = static_cast<uint32_t*>(acc_vals);
+  int* ac = static_cast<int*>(acc_counts);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (qblock > 0) return launch_ordered<float, true>(a, o, g, av, ac, s);
+  return launch_ordered<float, false>(a, o, g, av, ac, s);
+}
+
+// K4 global tier: the fold identities into acc_vals (slots x width).
+int ring_acc_launch(const int* ops, int width, int is_float, long long slots,
+                    void* acc_vals, void* stream) {
+  const long long total = slots * width;
+  if (total <= 0) return 0;
+  if (width > kMaxWidth || acc_vals == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  long long grid = (total + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sm_count()) * 16;
+  if (grid > cap) grid = cap;
+  ring_acc_kernel<<<static_cast<unsigned>(grid), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      is_float, make_ops(ops, width), width, slots, static_cast<uint32_t*>(acc_vals));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -740,43 +1007,6 @@ int ring_merge_launch(const long long* span_start, int num_receivers, int window
     ring_merge_kernel<int><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(
         span_start, num_receivers, windows_per_receiver, static_cast<const uint32_t*>(partials),
         o, g, static_cast<uint32_t*>(acc_vals), static_cast<int*>(acc_counts));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K4 global tier: one round over canonical window `index` of every receiver, over
-// the grids K3's launch landed (receiver j's at grid_base + j * grid_bytes).
-// apply = 0 bids (atomicMin of the row index per group), apply = 1 folds the
-// winning rows into the accumulator and raises *pending for the others.
-int ring_round_launch(int apply, const long long* windows, int num_receivers,
-                      int windows_per_receiver, int index, const void* grid_base,
-                      long long grid_bytes, long long row_bytes, long long max_rows, void* done,
-                      void* owner, void* pending, const int* ops, int width, int num_groups,
-                      int is_float, int qblock, int wq4, void* acc_vals, void* acc_counts,
-                      void* stream) {
-  if (num_receivers <= 0 || max_rows <= 0) return 0;
-  FoldGeometry g{num_groups, width, static_cast<int>(row_bytes / 4), qblock, wq4};
-  if (!check_geometry(g, is_float, row_bytes)) return static_cast<int>(cudaErrorInvalidValue);
-  const Ops o = make_ops(ops, width);
-  RoundArgs a{windows, windows_per_receiver, index, static_cast<const uint8_t*>(grid_base),
-              grid_bytes, row_bytes, max_rows, static_cast<uint8_t*>(done), static_cast<int*>(owner),
-              static_cast<int*>(pending)};
-  long long blocks = (max_rows + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sm_count()) * 16;
-  if (blocks > cap) blocks = cap;
-  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(num_receivers));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* av = static_cast<uint32_t*>(acc_vals);
-  int* ac = static_cast<int*>(acc_counts);
-  if (!is_float) {
-    if (apply) ring_round_kernel<true, int, false><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
-    else ring_round_kernel<false, int, false><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
-  } else if (qblock > 0) {
-    if (apply) ring_round_kernel<true, float, true><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
-    else ring_round_kernel<false, float, true><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
-  } else {
-    if (apply) ring_round_kernel<true, float, false><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
-    else ring_round_kernel<false, float, false><<<grid, kThreads, 0, s>>>(a, o, g, av, ac);
   }
   return static_cast<int>(cudaGetLastError());
 }

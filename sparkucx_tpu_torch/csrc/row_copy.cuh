@@ -1,6 +1,6 @@
-// Row-span copy between a packed buffer and an unpacked one, shared by the block
-// gather and scatter (block_copy.cu: K1, K2) and the scatter phase of the fused
-// send side (ring_exchange.cu: K5).
+// Row-span copy from a packed buffer into an unpacked one, shared by the block
+// scatter (block_copy.cu: K2) and the scatter phase of the fused send side
+// (ring_exchange.cu: K5).  (The block gather, K1, copies byte spans instead.)
 //
 // A plan is three int32 arrays of num_blocks entries: starts (row of each block on
 // the unpacked side), counts (rows per block) and outs (row of each block on the
@@ -52,10 +52,9 @@ struct Scratch {
   int cursor;
 };
 
-// Copy the packed rows [begin, end) of one plan: gather (unpacked src -> packed
-// dst) or scatter (packed src -> unpacked dst).  Called by every thread of a CTA
-// of kThreads threads with the same arguments.
-template <typename Vec, bool kGather>
+// Scatter the packed rows [begin, end) of one plan (packed src -> unpacked dst).
+// Called by every thread of a CTA of kThreads threads with the same arguments.
+template <typename Vec>
 __device__ __forceinline__ void copy_packed_rows(const int* __restrict__ starts,
                                                  const int* __restrict__ counts,
                                                  const int* __restrict__ outs, int num_blocks,
@@ -88,20 +87,12 @@ __device__ __forceinline__ void copy_packed_rows(const int* __restrict__ starts,
 #pragma unroll
       for (int k = 0; k < kRowsPerWarp; ++k) {
         const int r = warp + k * kWarps;
-        const long long other = sh.row[r];
-        if (other >= 0) {
-          const long long from = kGather ? other : tile + r;
-          v[k] = src[from * vecs_per_row + c];
-        }
+        if (sh.row[r] >= 0) v[k] = src[(tile + r) * vecs_per_row + c];
       }
 #pragma unroll
       for (int k = 0; k < kRowsPerWarp; ++k) {
-        const int r = warp + k * kWarps;
-        const long long other = sh.row[r];
-        if (other >= 0) {
-          const long long to = kGather ? tile + r : other;
-          dst[to * vecs_per_row + c] = v[k];
-        }
+        const long long to = sh.row[warp + k * kWarps];
+        if (to >= 0) dst[to * vecs_per_row + c] = v[k];
       }
     }
     __syncthreads();  // sh is rewritten by the next sub-tile

@@ -21,6 +21,12 @@ counts its kernel launches.
 Bound: both kernels read each packed row once and write it once, so their
 least time is ``2 * packed_rows * row_bytes`` over the card's memory
 bandwidth; the kernel source says how its design goes after that bound.
+The gather copies byte spans and takes any row width of 32-bit words.
+
+A launch costs host time that shows on an idle stream, so the wrappers do
+little besides their checks: the library is configured once, the stream is
+the raw handle of the device's current stream, and ``torch.cuda.device`` is
+entered only when the tensors lie on another device than the current one.
 """
 
 from __future__ import annotations
@@ -79,16 +85,22 @@ def plan_tensors(starts, counts, outs, device) -> Tuple[torch.Tensor, torch.Tens
     return plan[0], plan[1], plan[2]
 
 
-def _library() -> ctypes.CDLL:
-    from sparkucx_tpu_torch.ops import cuda_build
+_lib = None  #: the configured library, once loaded
 
-    lib = cuda_build.load("block_copy")
-    for fn in (lib.block_gather_launch, lib.block_scatter_launch):
-        fn.argtypes = _LAUNCHER_ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.block_copy_error_string.argtypes = [ctypes.c_int]
-    lib.block_copy_error_string.restype = ctypes.c_char_p
-    return lib
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from sparkucx_tpu_torch.ops import cuda_build
+
+        lib = cuda_build.load("block_copy")
+        for fn in (lib.block_gather_launch, lib.block_scatter_launch):
+            fn.argtypes = _LAUNCHER_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.block_copy_error_string.argtypes = [ctypes.c_int]
+        lib.block_copy_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
 
 
 def _check_rows(name: str, t: torch.Tensor) -> None:
@@ -103,26 +115,35 @@ def _check_rows(name: str, t: torch.Tensor) -> None:
 
 def _check_plan(starts, counts, outs, device: torch.device) -> int:
     for name, t in (("starts", starts), ("counts", counts), ("outs", outs)):
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
-            raise ValueError(f"{name} must be a 1-D int32 tensor")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != device:
+        # one test on the fast path: a launch's host time shows on an idle stream
+        if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32 and t.dim() == 1 and t.is_contiguous()
+                and t.device == device):
+            if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 or t.dim() != 1:
+                raise ValueError(f"{name} must be a 1-D int32 tensor")
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
             raise ValueError(f"{name} is on {t.device}, the rows are on {device}")
-    if not (starts.shape == counts.shape == outs.shape):
+    num_blocks = starts.shape[0]
+    if counts.shape[0] != num_blocks or outs.shape[0] != num_blocks:
         raise ValueError("starts, counts and outs must have one entry per block")
-    return int(starts.shape[0])
+    return num_blocks
 
 
-def _launch(fn_name: str, starts, counts, outs, num_blocks, src, dst, packed_rows, unpacked_rows) -> None:
+def _launch_args(starts, counts, outs, num_blocks, src, dst, packed_rows, unpacked_rows) -> tuple:
+    return (starts.data_ptr(), counts.data_ptr(), outs.data_ptr(), num_blocks, src.data_ptr(), dst.data_ptr(),
+            packed_rows, unpacked_rows, src.shape[1] * src.element_size(),
+            torch._C._cuda_getCurrentRawStream(src.device.index))
+
+
+def _launch(fn_name: str, *args) -> None:
     lib = _library()
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        rc = getattr(lib, fn_name)(
-            starts.data_ptr(), counts.data_ptr(), outs.data_ptr(), num_blocks,
-            src.data_ptr(), dst.data_ptr(), packed_rows, unpacked_rows,
-            src.shape[1] * src.element_size(), stream,
-        )
+    fn = getattr(lib, fn_name)
+    device = args[4].device
+    if device.index == torch.cuda.current_device():
+        rc = fn(*_launch_args(*args))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*_launch_args(*args))
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: {lib.block_copy_error_string(rc).decode()}")
 
@@ -134,7 +155,7 @@ def _gather_out(src: torch.Tensor, out_rows: int, out: Optional[torch.Tensor]) -
     if out is None:
         return torch.empty((out_rows, src.shape[1]), dtype=src.dtype, device=src.device)
     _check_rows("out", out)
-    if tuple(out.shape) != (out_rows, src.shape[1]) or out.dtype != src.dtype or out.device != src.device:
+    if out.shape != (out_rows, src.shape[1]) or out.dtype != src.dtype or out.device != src.device:
         raise ValueError(
             f"out {tuple(out.shape)} {out.dtype} {out.device} must be ({out_rows}, {src.shape[1]}) "
             f"{src.dtype} on {src.device}"
@@ -159,10 +180,11 @@ def block_gather(
 ) -> torch.Tensor:
     """``out[outs[b] + k] = src[starts[b] + k]`` for ``k < counts[b]``; returns
     the ``(out_rows, lane)`` output, a new tensor unless the caller passes a
-    contiguous ``out`` (a row slice of a larger buffer, say).  Its rows past
-    the packed total are UNSPECIFIED (the contract of ``build_block_gather``).
-    The plan is packed (``plan_tensors`` checks it) and its blocks lie inside
-    ``src``, which ``out`` must not overlap; zero-count entries are no-ops."""
+    contiguous ``out`` (a row slice of a larger buffer, say, at any row
+    offset).  Its rows past the packed total are UNSPECIFIED (the contract of
+    ``build_block_gather``; the kernel leaves them as they were).  The plan is
+    packed (``plan_tensors`` checks it) and its blocks lie inside ``src``,
+    which ``out`` must not overlap; zero-count entries are no-ops."""
     _check_rows("src", src)
     num_blocks = _check_plan(starts, counts, outs, src.device)
     if out_rows < 0:
@@ -179,6 +201,13 @@ def block_gather(
 
 
 block_gather.launches = 0
+
+
+def block_gather_args(starts, counts, outs, src: torch.Tensor, out: torch.Tensor) -> tuple:
+    """The arguments of one ``block_gather_launch`` (the kernel's C entry)
+    on the current stream, for timing the launch alone: ``block_gather``
+    without its checks, allocation and count."""
+    return _launch_args(starts, counts, outs, int(starts.shape[0]), src, out, out.shape[0], src.shape[0])
 
 
 # -- scatter ---------------------------------------------------------------

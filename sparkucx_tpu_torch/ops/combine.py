@@ -24,6 +24,19 @@ group — never a ``(rows, groups)`` one-hot mask, which cannot be built at
 millions of groups.  For int32 it is exact; for float32 it equals the JAX
 fold whenever no key repeats inside a window, which holds on the GROUP BY
 path (partial rows carry one row per key and sender).
+
+Float32 min and max follow XLA's ``minimum``/``maximum``, the JAX package's
+fold: -0.0 lies below +0.0 whatever the arrival order, and a NaN anywhere in
+a group makes the group's result that NaN, its bits passed on as they came.
+:func:`fold_extreme_` and :func:`extreme` reduce on :func:`fold_key`, an int32
+image of the float bits that orders as the floats do with every NaN beyond
+the numbers on the fold's side; ``scatter_reduce_`` on the floats themselves
+keeps whichever zero came first and is not checked for NaN on every device.
+Where a group meets NaNs of both signs, min returns the positive one and max
+the negative one, as XLA does.  Where it meets two NaNs of one sign but
+different bits, XLA's pick depends on the order it meets them in; the key
+picks one whatever the order: the NaN whose :func:`order_image` is least
+(min) or greatest (max).
 """
 
 from __future__ import annotations
@@ -42,6 +55,56 @@ COMBINE_AGGS: Tuple[str, ...] = ("sum", "min", "max", "avg")
 
 #: scatter_reduce_ reduction of each aggregate
 _REDUCE = {"sum": "sum", "avg": "sum", "min": "amin", "max": "amax"}
+#: how far a min (+) or max (-) :func:`fold_key` turns :func:`order_image`
+#: round the int32 range: the 2**23 - 1 NaNs of one sign then pass its end
+_NAN_SPAN = 0x7FFFFF
+
+
+def order_image(x: torch.Tensor) -> torch.Tensor:
+    """The int32 image of float32 ``x``'s bits that orders as the floats do,
+    -0.0 just below +0.0 (negative floats have their magnitude bits
+    flipped).  The map is its own inverse: ``order_image(order_image(x)
+    .view(torch.float32))`` is ``x``'s bits."""
+    bits = x.view(torch.int32)
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _turn(image: torch.Tensor, shift: int) -> torch.Tensor:
+    """``image + shift`` wrapping round the int32 range."""
+    return (((image.to(torch.int64) + shift + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def fold_key(agg: str, x: torch.Tensor) -> torch.Tensor:
+    """The int32 key that ``agg`` ('min' or 'max') folds float32 ``x`` on:
+    :func:`order_image` turned by ``+-_NAN_SPAN``, so that every NaN lies
+    below -inf for min and above +inf for max, positive NaNs below negative
+    ones; one key a bit pattern."""
+    return _turn(order_image(x), _NAN_SPAN if agg == "min" else -_NAN_SPAN)
+
+
+def _from_key(agg: str, key: torch.Tensor) -> torch.Tensor:
+    image = _turn(key, -_NAN_SPAN if agg == "min" else _NAN_SPAN)
+    return order_image(image.view(torch.float32)).view(torch.float32)
+
+
+def extreme(agg: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``agg`` ('min' or 'max') of ``a`` and ``b`` as XLA's
+    ``minimum``/``maximum`` gives it (module docstring); integers as torch's."""
+    pick = torch.minimum if agg == "min" else torch.maximum
+    if not a.is_floating_point():
+        return pick(a, b)
+    return _from_key(agg, pick(fold_key(agg, a), fold_key(agg, b)))
+
+
+def fold_extreme_(agg: str, acc: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``acc[idx[k]] = extreme(agg, acc[idx[k]], vals[k])`` for every k, IN
+    PLACE on the 1-D ``acc`` (a column view is fine); deterministic, since
+    integer ``scatter_reduce_`` does not depend on the order of the rows."""
+    reduce = _REDUCE[agg]
+    if not acc.is_floating_point():
+        return acc.scatter_reduce_(0, idx, vals, reduce, include_self=True)
+    key = fold_key(agg, acc).scatter_reduce_(0, idx, fold_key(agg, vals), reduce, include_self=True)
+    return acc.copy_(_from_key(agg, key))
 
 
 def agg_identity(agg: str, dtype):
@@ -158,22 +221,23 @@ def combine_window(spec: CombineSpec, window: torch.Tensor, acc_vals: torch.Tens
     acc_counts.view(-1).index_add_(0, idx, counts[valid])
     rows = payload[valid]
     for c, agg in enumerate(spec.aggs):
-        acc_vals[:, c].scatter_reduce_(0, idx, rows[:, c], _REDUCE[agg], include_self=True)
+        if _REDUCE[agg] == "sum":
+            acc_vals[:, c].scatter_reduce_(0, idx, rows[:, c], "sum", include_self=True)
+        else:
+            fold_extreme_(agg, acc_vals[:, c], idx, rows[:, c])
     return acc_vals, acc_counts
 
 
 def merge_accumulators(spec: CombineSpec, a, b):
     """Merge two dense accumulators into new tensors: sum/avg columns add in
     argument order (running accumulator first, so float merges are
-    deterministic), min/max take the minimum/maximum, counts add."""
+    deterministic), min/max take :func:`extreme`, counts add."""
     (av, ac), (bv, bc) = a, b
     cols = []
     for c, agg in enumerate(spec.aggs):
         if _REDUCE[agg] == "sum":
             cols.append(av[:, c] + bv[:, c])
-        elif agg == "min":
-            cols.append(torch.minimum(av[:, c], bv[:, c]))
         else:
-            cols.append(torch.maximum(av[:, c], bv[:, c]))
+            cols.append(extreme(agg, av[:, c], bv[:, c]))
     vals = torch.stack(cols, dim=1) if cols else av.new_zeros(av.shape)
     return vals, ac + bc

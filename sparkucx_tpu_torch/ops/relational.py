@@ -50,7 +50,7 @@ from sparkucx_tpu_torch.ops.columnar import (
     shard_rows_host,
     unpack_shard_prefixes,
 )
-from sparkucx_tpu_torch.ops.combine import CombineSpec, agg_identity, torch_dtype
+from sparkucx_tpu_torch.ops.combine import CombineSpec, agg_identity, fold_extreme_, torch_dtype
 from sparkucx_tpu_torch.ops.compress import QuantizeSpec, dequantize_rows, quantize_rows
 from sparkucx_tpu_torch.ops.exchange import same_device
 from sparkucx_tpu_torch.ops.ici_exchange import (
@@ -319,8 +319,7 @@ def _reduce_col(segs: _Segments, agg: str, col: torch.Tensor, ident) -> torch.Te
         if col.is_floating_point():
             return torch.segment_reduce(col, "sum", lengths=segs.lengths)
         return _segment_sum_int(segs, col)
-    reduce = "amin" if agg == "min" else "amax"
-    return col.new_full((num_seg,), ident.item()).scatter_reduce_(0, segs.seg, col, reduce, include_self=True)
+    return fold_extreme_(agg, col.new_full((num_seg,), ident.item()), segs.seg, col)
 
 
 def _segment_reduce(aggs: Tuple[str, ...], n: int, out_cap: int, keys, vals, valid, counts=None):

@@ -34,11 +34,14 @@ version beside it, which is also what the kernels are held against on the
 card.  Each wrapper's ``launches`` counts the calls that launched its kernels.
 
 K3 keeps its window table on the device, looked up by schedule in a bounded
-cache (:func:`window_table`), and passes the executors' base pointers by
+cache (:func:`window_table`), and passes the receivers' grid pointers by
 value in its launch's parameters: a call checks its operands, allocates the
-grid and launches, and uploads nothing.  K4's global tier copies its grid
-with that launch too; K4's shared tier and K5 build their tables per call
-(``_Launch``).
+grid and launches, and uploads nothing.  One launch addresses at most
+``MAX_EXECUTORS`` receivers, so a call launches once per group of them
+(:func:`receiver_groups`); any number of executors runs, as on the TPU.
+K4's global tier runs on the same launches (folding as it copies, or
+landing the grid for its ordered fold); K4's shared tier and K5 build their
+tables per call (``_Launch``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from collections import OrderedDict
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -67,8 +70,8 @@ SMEM_FOLD_BYTES = 64 * 1024
 PARTIALS_BUDGET_BYTES = 256 << 20
 #: aggregate columns the kernel folds (``kMaxWidth`` in the source)
 MAX_WIDTH = 16
-#: executors one K3 launch addresses (``kMaxExecs`` in the source): their
-#: staging and grid base pointers travel in the launch's parameters
+#: receivers one K3 launch addresses (``kMaxExecs`` in the source): their
+#: grid pointers travel in the launch's parameters
 MAX_EXECUTORS = 64
 #: K3 window tables kept on the devices, by schedule (as many exchange
 #: functions as ``transport/tpu.py`` caches)
@@ -140,6 +143,28 @@ def window_table(num_devices: int, slot_rows: int, window_rows: int, steps, devi
     return entry
 
 
+class ReceiverGroup(NamedTuple):
+    """The receivers one K3 launch (or K4 global-tier launch) addresses."""
+
+    first: int  #: its first receiver
+    receivers: int  #: how many, at most MAX_EXECUTORS
+    first_window: int  #: its first row of the window table
+    windows: int  #: its rows of the window table
+
+
+def receiver_groups(num_devices: int, num_windows: int) -> List[ReceiverGroup]:
+    """Receivers ``[0, num_devices)`` cut into groups of at most
+    ``MAX_EXECUTORS``, each with its windows: the table is receiver-major with
+    ``num_windows / num_devices`` windows a receiver, so a group's windows are
+    one contiguous run of it."""
+    per = num_windows // num_devices
+    groups = []
+    for first in range(0, num_devices, MAX_EXECUTORS):
+        receivers = min(MAX_EXECUTORS, num_devices - first)
+        groups.append(ReceiverGroup(first, receivers, first * per, receivers * per))
+    return groups
+
+
 def _check_data(name: str, data: torch.Tensor, num_devices: int, slot_rows: int) -> None:
     if not isinstance(data, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(data).__name__}")
@@ -209,17 +234,22 @@ def _library() -> ctypes.CDLL:
 
     lib = cuda_build.load("ring_exchange")
     span = [_P, _P, _I, _L, _L, _P, _P, _L, _I]  # windows .. row_bytes, wide
-    lib.ring_exchange_launch.argtypes = [_P, _I, _L, _I, _L, _L, _L, _L, _P]
+    copy = [_P, _I, _I, _I, _L, _I, _I, _L, _L, _L, _L]  # table .. row_bytes (ring_exchange_args)
+    fold = [_INTS, _I, _I, _I, _I, _I, _P, _P]  # ops, width, G, is_float, qblock, wq4, acc_vals, acc_counts
+    lib.ring_exchange_launch.argtypes = copy + [_P]
+    lib.ring_combine_global_launch.argtypes = copy + fold + [_P]
+    lib.ring_ordered_fold_launch.argtypes = [
+        _P, _I, _I, _I, _L, _L, _L, _L, _P, _P, _P, _P, _INTS, _I, _I, _I, _I, _P, _P, _P,
+    ]
+    lib.ring_acc_launch.argtypes = [_INTS, _I, _I, _L, _P, _P]
     lib.fused_scatter_launch.argtypes = [_P, _P, _P, _I, _I, _P, _L, _L, _P, _P, _I, _L, _L, _I, _P]
     lib.fused_scatter_grid_size.argtypes = [_I]
     lib.fused_scatter_grid_size.restype = ctypes.c_int
     lib.ring_fold_launch.argtypes = span + [_INTS, _I, _I, _I, _I, _I, _P, _P]
     lib.ring_merge_launch.argtypes = [_P, _I, _I, _P, _INTS, _I, _I, _I, _P, _P, _P]
-    lib.ring_round_launch.argtypes = [
-        _I, _P, _I, _I, _I, _P, _L, _L, _L, _P, _P, _P, _INTS, _I, _I, _I, _I, _I, _P, _P, _P,
-    ]
     for fn in (lib.ring_exchange_launch, lib.ring_fold_launch, lib.ring_merge_launch,
-               lib.ring_round_launch, lib.fused_scatter_launch, lib.ring_max_width, lib.ring_max_execs):
+               lib.ring_combine_global_launch, lib.ring_ordered_fold_launch, lib.ring_acc_launch,
+               lib.fused_scatter_launch, lib.ring_max_width, lib.ring_max_execs):
         fn.restype = ctypes.c_int
     if lib.ring_max_width() != MAX_WIDTH:
         raise RuntimeError(f"ring_exchange.cu folds {lib.ring_max_width()} columns, MAX_WIDTH is {MAX_WIDTH}")
@@ -297,18 +327,21 @@ def _check_device(data: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} runs on cuda or cpu tensors, got {data.device}")
 
 
-def ring_exchange_args(num_devices: int, slot_rows: int, window_rows: int, steps, data, grid):
-    """The arguments of one K3 launch (``ring_exchange_launch`` in the source)
-    from ``data`` into ``grid`` on the current stream: the cached window
-    table, and the executors' staging and grid bases as two base pointers and
-    the bytes of one executor's part (the launch passes them on by value)."""
+def ring_exchange_args(num_devices: int, slot_rows: int, window_rows: int, steps, data, grid) -> List[tuple]:
+    """The arguments of K3's launches (``ring_exchange_launch`` in the source)
+    from ``data`` into ``grid`` on the current stream, one tuple a receiver
+    group (:func:`receiver_groups`): the cached window table, the group's
+    windows, rows and receivers, the staging and grid bases and the bytes of
+    one executor's part, the stream."""
     table = window_table(num_devices, slot_rows, window_rows, steps, data.device)
     row_bytes = data.shape[1] * 4
+    rows = table.total_rows // num_devices  # every receiver lands the same rows
     # the raw stream handle, without building a torch.cuda.Stream: a call's host
     # time before its launch shows in its time when the stream is idle
-    return (table.tensor.data_ptr(), table.num_windows, table.total_rows, num_devices, data.data_ptr(),
-            grid.data_ptr(), num_devices * slot_rows * row_bytes, row_bytes,
-            torch._C._cuda_getCurrentRawStream(data.device.index))
+    stream = torch._C._cuda_getCurrentRawStream(data.device.index)
+    bases = (data.data_ptr(), grid.data_ptr(), num_devices * slot_rows * row_bytes, row_bytes)
+    return [(table.tensor.data_ptr(), table.num_windows, g.first_window, g.windows, g.receivers * rows, g.first,
+             g.receivers) + bases + (stream,) for g in receiver_groups(num_devices, table.num_windows)]
 
 
 def ring_exchange_grid(
@@ -316,21 +349,19 @@ def ring_exchange_grid(
 ) -> torch.Tensor:
     """K3: every executor's destination-major staging -> every receiver's
     sender-major grid (module docstring), all windows of the schedule in one
-    launch.  ``steps``: the raw schedule, steps of ``(offset, chunk,
-    direction)`` (``RingSchedule.raw_steps()``).  Returns a new
-    ``(n * n * slot, lane)`` tensor.  On the card at most ``MAX_EXECUTORS``
-    executors."""
+    launch per group of ``MAX_EXECUTORS`` receivers.  ``steps``: the raw
+    schedule, steps of ``(offset, chunk, direction)``
+    (``RingSchedule.raw_steps()``).  Returns a new ``(n * n * slot, lane)``
+    tensor."""
     _check_data("data", data, num_devices, slot_rows)
     if data.device.type == "cpu":
         _check_schedule(num_devices, slot_rows, window_rows, steps)
         return ring_exchange_grid_ref(num_devices, slot_rows, window_rows, steps, data)
-    if num_devices > MAX_EXECUTORS:
-        raise ValueError(f"ring_exchange_grid addresses at most {MAX_EXECUTORS} executors in one launch, got {num_devices}")
     _check_device(data, "ring_exchange_grid")
     grid = torch.empty_like(data)
     lib = _library()
-    _check(lib, "ring_exchange_launch", lib.ring_exchange_launch(
-        *ring_exchange_args(num_devices, slot_rows, window_rows, steps, data, grid)))
+    for args in ring_exchange_args(num_devices, slot_rows, window_rows, steps, data, grid):
+        _check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*args))
     ring_exchange_grid.launches += 1
     return grid
 
@@ -436,8 +467,11 @@ def ring_combine_grid(
     order.  Returns ``(grid (n * n * slot, lane), acc_vals (n * G, width) of
     cspec.dtype, acc_counts (n * G, 1) int32)``: receiver j's accumulator is
     rows ``[j * G, (j + 1) * G)``.  Deterministic: two calls on the same
-    inputs return the same bits.  On the card, the global tier (see
-    :func:`ring_combine_tier`) takes at most ``MAX_EXECUTORS`` executors."""
+    inputs return the same bits.  Float min and max fold as
+    ``combine_window`` does (-0.0 below +0.0, a NaN's own bits passed on).  On the card
+    the global tier (see :func:`ring_combine_tier`) issues a fixed number of
+    launches and never waits for the device: one per group of
+    ``MAX_EXECUTORS`` receivers (two where a float sum keeps its order)."""
     cspec.validate()
     _check_data("data", data, num_devices, slot_rows)
     _check_schedule(num_devices, slot_rows, window_rows, steps)
@@ -451,19 +485,14 @@ def ring_combine_grid(
     if cspec.width > MAX_WIDTH:
         raise ValueError(f"the ring combine kernel folds at most {MAX_WIDTH} columns, got {cspec.width}")
     tier = ring_combine_tier(cspec)
-    if tier == "global" and num_devices > MAX_EXECUTORS:
-        raise ValueError(
-            f"ring_combine_grid's global tier copies through K3's launch, which addresses at most "
-            f"{MAX_EXECUTORS} executors, got {num_devices}"
-        )
     _check_device(data, "ring_combine_grid")
     n, g, w = num_devices, cspec.num_groups, cspec.width
     grid = torch.empty_like(data)
     acc_vals = torch.empty((n * g, w), dtype=cspec.torch_dtype, device=data.device)
     acc_counts = torch.empty((n * g, 1), dtype=torch.int32, device=data.device)
-    ops, is_float, qblock, wq4 = _fold_args(cspec)
     lib = _library()
     if tier == "shared":
+        ops, is_float, qblock, wq4 = _fold_args(cspec)
         launch = _Launch(n, slot_rows, window_rows, steps, data, grid, part_bytes=g * (w + 1) * 4)
         partials = torch.empty(launch.total_spans * g * (w + 1), dtype=torch.int32, device=data.device)
         _check(lib, "ring_fold_launch", lib.ring_fold_launch(
@@ -472,33 +501,43 @@ def ring_combine_grid(
             launch.span_start, n, launch.per_receiver, partials.data_ptr(), ops, w, g, is_float,
             acc_vals.data_ptr(), acc_counts.data_ptr(), launch.stream))
     else:
-        args = ring_exchange_args(n, slot_rows, window_rows, steps, data, grid)
-        _check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*args))
-        table, num_windows, _rows, _n, _src, grid_ptr, grid_bytes, row_bytes, stream = args
-        per_receiver = num_windows // n
-        init_vals, _ = acc_init(cspec, data.device)
-        acc_vals.copy_(init_vals.repeat(n, 1))
-        acc_counts.zero_()
-        owner = torch.full((n * g,), _INT_MAX, dtype=torch.int32, device=data.device)
-        done = torch.empty((n * slot_rows,), dtype=torch.uint8, device=data.device)
-        pending = torch.zeros((1,), dtype=torch.int32, device=data.device)
-        for index in range(per_receiver):
-            rows = slot_rows if index == 0 else window_rows  # the own slot, then one window an item
-            done.zero_()
-            while True:
-                pending.zero_()
-                for apply in (0, 1):
-                    _check(lib, "ring_round_launch", lib.ring_round_launch(
-                        apply, table, n, per_receiver, index, grid_ptr, grid_bytes, row_bytes, rows,
-                        done.data_ptr(), owner.data_ptr(), pending.data_ptr(), ops, w, g, is_float, qblock,
-                        wq4, acc_vals.data_ptr(), acc_counts.data_ptr(), stream))
-                if not int(pending.item()):
-                    break
+        _combine_global(lib, n, slot_rows, window_rows, steps, cspec, data, grid, acc_vals, acc_counts)
     ring_combine_grid.launches += 1
     return grid, acc_vals, acc_counts
 
 
 ring_combine_grid.launches = 0
+
+
+def _combine_global(lib, n, slot_rows, window_rows, steps, cspec, data, grid, acc_vals, acc_counts) -> None:
+    """K4's global tier on the current stream (``ring_combine_grid``): the
+    identities, then per receiver group either one launch that copies and
+    folds with atomics, or, with a float sum column, K3's copy and one
+    cooperative fold in canonical order; no host sync."""
+    ops, is_float, qblock, wq4 = _fold_args(cspec)
+    w, g = cspec.width, cspec.num_groups
+    av, ac = acc_vals.data_ptr(), acc_counts.data_ptr()
+    groups = ring_exchange_args(n, slot_rows, window_rows, steps, data, grid)
+    stream = groups[0][-1]
+    acc_counts.zero_()
+    _check(lib, "ring_acc_launch", lib.ring_acc_launch(ops, w, is_float, n * g, av, stream))
+    ordered = bool(is_float) and any(_OPS[a] == _OPS["sum"] for a in cspec.aggs)
+    if not ordered:
+        for args in groups:
+            _check(lib, "ring_combine_global_launch", lib.ring_combine_global_launch(
+                *args[:-1], ops, w, g, is_float, qblock, wq4, av, ac, stream))
+        return
+    per_receiver = groups[0][3] // groups[0][6]  # a group's windows over its receivers
+    done = torch.zeros(n * slot_rows, dtype=torch.int32, device=data.device)
+    owner = torch.full((n * g,), _INT_MAX, dtype=torch.int32, device=data.device)
+    sync = torch.zeros(1 + len(groups), dtype=torch.int32, device=data.device)  # barrier, pending a group
+    for k, args in enumerate(groups):
+        _check(lib, "ring_exchange_launch", lib.ring_exchange_launch(*args))
+        table, _nw, first_window, _windows, _rows, _first, receivers, _src, grid_base, exec_bytes, row_bytes, _s = args
+        _check(lib, "ring_ordered_fold_launch", lib.ring_ordered_fold_launch(
+            table, first_window, per_receiver, receivers, grid_base, exec_bytes, row_bytes, slot_rows,
+            done.data_ptr(), owner.data_ptr(), sync.data_ptr(), sync.data_ptr() + 4 * (1 + k),
+            ops, w, g, qblock, wq4, av, ac, stream))
 
 
 def ring_combine_tier(cspec: CombineSpec) -> str:

@@ -155,3 +155,118 @@ def test_combine_spec_validation_matches_jax():
     for agg in ("sum", "min", "max", "avg"):
         for dt in (np.int32, np.float32):
             assert torch_combine.agg_identity(agg, dt) == jax_combine.agg_identity(agg, dt)
+
+
+#: NaNs of other bits than np.nan's (0x7fc00000): another positive one and a
+#: negative one (x86's 0/0); min and max pass on the bits of the NaN they meet
+_POS_NAN, _NEG_NAN, _NEG_NAN_1 = np.array([0x7FC00001, 0xFFC00000, 0xFFC00001], np.uint32).view(np.float32)
+
+#: float32 min/max inputs: both zeros in both orders, and NaNs.  No group
+#: meets two NaNs of one sign with different bits: XLA's pick between those
+#: depends on the order it meets them in
+#: (``test_nans_of_one_sign_fold_to_one_pick_in_any_order``).
+_SIGNED = {
+    "zero first": [0.0, -0.0, 2.0],
+    "negative zero first": [-0.0, 0.0, 2.0],
+    "nan": [1.0, np.nan, -0.0],
+    "nan last": [-0.0, 0.0, np.nan],
+    "positive nan of other bits": [-0.0, _POS_NAN, 0.0],
+    "negative nan": [1.0, _NEG_NAN, -0.0],
+    "nans of both signs": [_NEG_NAN, 0.0, _POS_NAN],
+}
+
+
+def _signed_window(spec, values, counts=(1, 2, 1)):
+    """One window: every row of ``values`` in group 1, then the same values
+    reversed in group 2 (both arrival orders in one fold), a row in group 3."""
+    vals = np.asarray(values, np.float32)
+    rows = np.concatenate([vals, vals[::-1], vals[:1]])
+    keys = np.array([1] * vals.size + [2] * vals.size + [3], np.uint32)
+    cnt = np.array(list(counts) * 2 + [1], np.int32)
+    payload = np.repeat(rows[:, None], spec.width, axis=1)
+    return np.concatenate([keys.view(np.float32)[:, None], payload, cnt.view(np.float32)[:, None]], axis=1)
+
+
+def _bits(x):
+    return np.asarray(x).view(np.uint32)
+
+
+@pytest.mark.parametrize("case", sorted(_SIGNED))
+def test_float_min_max_signed_zeros_and_nan_bit_equal_to_jax(case):
+    """-0.0 below +0.0 in either order, a NaN's own bits passed on (between
+    NaNs of both signs, min takes the positive one and max the negative one),
+    in ``combine_window`` (one window, then a second one folded over it) and
+    in ``merge_accumulators`` (both argument orders)."""
+    kw = dict(num_groups=4, aggs=("min", "max", "sum"), dtype=np.float32)
+    jspec, tspec = jax_combine.CombineSpec(**kw), torch_combine.CombineSpec(**kw)
+    values = _SIGNED[case]
+    first = _signed_window(tspec, values)
+    second = _signed_window(tspec, [-0.0, 0.0, 0.0] if "nan" not in case else [0.0, 1.0, -0.0])
+    jv, jc = jax_combine.acc_init(jspec)
+    tv, tc = torch_combine.acc_init(tspec)
+    for win in (first, second):
+        jv, jc = jax_combine.combine_window(jspec, jnp.asarray(win), jv, jc)
+        tv, tc = torch_combine.combine_window(tspec, torch.from_numpy(win), tv, tc)
+        assert np.array_equal(_bits(tv.numpy()), _bits(jv))
+        assert np.array_equal(tc.numpy(), np.asarray(jc))
+    nans = [v for v in np.asarray(values, np.float32) if np.isnan(v)]
+    other = np.full((4, 3), 0.0, np.float32)
+    other[1] = -0.0
+    other[2, :2] = nans[0] if nans else np.nan  # the NaN the group met, or np.nan
+    ov, oc = torch.from_numpy(other), torch.ones((4, 1), dtype=torch.int32)
+    for a, b in (((tv, tc), (ov, oc)), ((ov, oc), (tv, tc))):
+        mt = torch_combine.merge_accumulators(tspec, a, b)
+        mj = jax_combine.merge_accumulators(jspec, *(tuple(jnp.asarray(x.numpy()) for x in p) for p in (a, b)))
+        for x, y in zip(mt, mj):
+            assert np.array_equal(_bits(x.numpy()), _bits(y))
+    if "nan" in case:  # the NaN's own bits came out of group 1's min and max
+        want = {"nans of both signs": [_POS_NAN, _NEG_NAN]}.get(case, nans[:1] * 2)
+        assert _bits(tv.numpy()[1, :2]).tolist() == _bits(np.asarray(want, np.float32)).tolist()
+
+
+@pytest.mark.parametrize("agg", ["min", "max"])
+def test_nans_of_one_sign_fold_to_one_pick_in_any_order(agg):
+    """Two NaNs of one sign but different bits: XLA picks by the order it
+    meets them in; the port picks the same one in every order (the NaN whose
+    ``order_image`` is least for min, greatest for max), in ``combine_window``,
+    ``merge_accumulators`` and ``extreme``."""
+    spec = torch_combine.CombineSpec(num_groups=2, aggs=(agg,), dtype=np.float32)
+    for pair, want in (((np.nan, _POS_NAN), {"min": np.nan, "max": _POS_NAN}),
+                       ((_NEG_NAN, _NEG_NAN_1), {"min": _NEG_NAN_1, "max": _NEG_NAN})):
+        got = set()
+        for order in (pair, pair[::-1]):
+            win = _signed_window(spec, [order[0], 1.0, order[1]])
+            acc = torch_combine.combine_window(spec, torch.from_numpy(win), *torch_combine.acc_init(spec))
+            got.add(int(_bits(acc[0].numpy())[1, 0]))
+            a, b = (torch.tensor([[v]], dtype=torch.float32) for v in order)
+            got.add(int(_bits(torch_combine.extreme(agg, a, b).numpy())[0, 0]))
+            merged = torch_combine.merge_accumulators(spec, (a, torch.ones((1, 1), dtype=torch.int32)),
+                                                      (b, torch.ones((1, 1), dtype=torch.int32)))
+            got.add(int(_bits(merged[0].numpy())[0, 0]))
+        assert got == {int(_bits(np.float32(want[agg])))}
+
+
+def test_order_image_orders_as_the_floats_do():
+    x = np.array([-np.inf, -3.5, -1e-38, -0.0, 0.0, 1e-45, 2.0, np.inf], np.float32)
+    image = torch_combine.order_image(torch.from_numpy(x)).numpy()
+    assert (np.diff(image.astype(np.int64)) > 0).all()
+    back = torch_combine.order_image(torch.from_numpy(image).view(torch.float32)).numpy()
+    assert np.array_equal(back, x.view(np.int32))
+
+
+@pytest.mark.parametrize("agg", ["min", "max"])
+def test_fold_key_puts_every_nan_past_the_numbers(agg):
+    """``fold_key`` orders the numbers as ``order_image`` does, puts every NaN
+    below -inf (min) or above +inf (max), positive NaNs below negative ones,
+    and maps one key to one bit pattern."""
+    numbers = np.array([-np.inf, -3.5, -0.0, 0.0, 1e-45, np.inf], np.float32)
+    nans = np.array([0x7F800001, 0x7FC00000, 0x7FFFFFFF, 0xFFFFFFFF, 0xFFC00000, 0xFF800001], np.uint32)
+    x = np.concatenate([numbers, nans.view(np.float32)])
+    key = torch_combine.fold_key(agg, torch.from_numpy(x)).numpy().astype(np.int64)
+    num, nan = key[: numbers.size], key[numbers.size :]
+    assert (np.diff(num) > 0).all()
+    assert (nan < num.min()).all() if agg == "min" else (nan > num.max()).all()
+    assert (nan[:3] < nan[3:, None]).all()  # positive NaNs below negative ones
+    assert np.unique(key).size == key.size
+    back = torch_combine._from_key(agg, torch.from_numpy(key.astype(np.int32)))
+    assert np.array_equal(_bits(back.numpy()), _bits(x))

@@ -81,6 +81,55 @@ def test_scatter_matches_plain(cuda, lane):
     assert torch.equal(got, expected)
 
 
+#: K1's row widths on the paths: 4 B, 12 B (Q18), 36 B (Q1), 100 B (TeraSort), 512 B
+_K1_LANES = [1, 3, 9, 25, 128]
+
+
+@pytest.mark.parametrize("lane", _K1_LANES)
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_gather_byte_spans_at_every_row_width(cuda, lane, offset):
+    """Ragged blocks, empty blocks and count-0 pads, into ``out`` a row slice
+    ``offset`` rows into a larger buffer (off 16 bytes for most widths):
+    every byte of the buffer equal to the plain version's, rows past the
+    packed total and outside the slice left as they were."""
+    src = torch.randint(-(2**31), 2**31 - 1, (5000, lane), dtype=torch.int32, device=cuda)
+    starts, counts, outs = _plan(lane + offset, 400, 5000, 60)
+    total = int(counts.sum())
+    starts, counts, outs = (np.concatenate([a, [0, 0, 0]]).astype(np.int32) for a in (starts, counts, outs))
+    outs[-3:] = total
+    s, c, o = plan_tensors(starts, counts, outs, cuda)
+    out_rows = total + 7
+    buf = torch.randint(-(2**31), 2**31 - 1, (out_rows + offset + 5, lane), dtype=torch.int32, device=cuda)
+    want = buf.clone()
+    block_gather_ref(s, c, o, src, out_rows, out=want[offset : offset + out_rows])
+    got = block_gather(s, c, o, src, out_rows, out=buf[offset : offset + out_rows])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf[offset:].data_ptr()
+    assert torch.equal(buf, want)
+
+
+def test_gather_forty_thousand_one_row_blocks(cuda):
+    for lane in (3, 128):
+        src = torch.randint(-(2**31), 2**31 - 1, (50_000, lane), dtype=torch.int32, device=cuda)
+        starts = np.random.default_rng(lane).permutation(50_000)[:40_000].astype(np.int32)
+        counts = np.ones(40_000, np.int32)
+        p = plan_tensors(starts, counts, np.arange(40_000, dtype=np.int32), cuda)
+        got = block_gather(*p, src, 40_000)
+        torch.cuda.synchronize()
+        assert torch.equal(got, src[torch.from_numpy(starts).to(cuda).long()])
+
+
+def test_gather_zero_count_plans_are_no_ops(cuda):
+    src = torch.randint(0, 1 << 30, (64, 9), dtype=torch.int32, device=cuda)
+    out = torch.full((16, 9), 7, dtype=torch.int32, device=cuda)
+    before = block_gather.launches
+    for plan in (([], [], []), ([3, 5], [0, 0], [0, 0])):
+        block_gather(*plan_tensors(*plan, cuda), src, 16, out=out)
+        torch.cuda.synchronize()
+        assert torch.equal(out, torch.full_like(out, 7))
+    assert block_gather.launches == before + 1  # B = 0 launches nothing; the pads launch and copy nothing
+
+
 def test_rows_outside_the_source_are_not_copied(cuda):
     """The kernel's memory guard: a block running past the source's end copies
     its in-range rows and touches nothing outside the buffers."""
@@ -246,19 +295,21 @@ def test_ring_exchange_grid_off_the_16_byte_alignment(cuda):
     assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // chunks, steps, data))
 
 
+@pytest.mark.parametrize("n", [64, 65, 130])
 @pytest.mark.parametrize("lane", [32, 9])
-def test_ring_exchange_grid_at_the_executor_limit(cuda, lane):
+def test_ring_exchange_grid_past_one_receiver_group(cuda, n, lane):
+    """One launch a group of MAX_EXECUTORS receivers, bit-equal at 64 (one
+    group), 65 and 130 executors."""
     from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
-    from sparkucx_tpu_torch.ops.ring_kernels import MAX_EXECUTORS, ring_exchange_grid, ring_exchange_grid_ref
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
 
-    n, slot = MAX_EXECUTORS, 64
-    data = _ring_data(cuda, n, slot, lane, seed=64 + lane)
+    slot = 4
+    data = _ring_data(cuda, n, slot, lane, seed=n + lane)
     steps = ring_schedule(n, 2).raw_steps()
     got = ring_exchange_grid(n, slot, slot // 2, steps, data)
     torch.cuda.synchronize()
     assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // 2, steps, data))
-    with pytest.raises(ValueError, match="executors"):
-        ring_exchange_grid(n + 1, 1, 1, ring_schedule(n + 1, 1).raw_steps(), _ring_data(cuda, n + 1, 1, lane, seed=1))
+    assert torch.equal(got, data.view(n, n, slot, lane).transpose(0, 1).reshape(-1, lane))
 
 
 def test_ring_exchange_grid_two_calls_on_one_cached_schedule(cuda):
@@ -388,6 +439,111 @@ def test_ring_combine_float_duplicates_are_deterministic(cuda, groups):
     torch.testing.assert_close(av.cpu(), pv, rtol=1e-5, atol=1e-3)
 
 
+#: NaNs of three bit patterns: np.nan, another positive one, a negative one
+#: (x86's 0/0); min and max pass on the bits of the NaN they pick
+_NANS = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000], np.uint32).view(np.float32)
+
+
+def _signed_staging(device, n, slot, cspec, seed, distinct):
+    """``_combine_data`` with the float payload drawn from {-0.0, +0.0, -1.5,
+    2.5} and the NaNs ``_NANS``: every group sees both zeros, in both orders,
+    and some a NaN."""
+    data = _combine_data(device, n, slot, cspec, seed, distinct).view(torch.int32)
+    rng = np.random.default_rng(seed + 1)
+    pool = np.concatenate([np.array([-0.0, 0.0, -1.5, 2.5], np.float32).view(np.int32), _NANS.view(np.int32)])
+    pick = rng.integers(0, pool.size, size=(data.shape[0], cspec.width))
+    zeros = rng.random(pick.shape) < 0.8  # mostly a zero of either sign
+    pick[zeros] = rng.integers(0, 2, size=int(zeros.sum()))
+    valid = data[:, -1] > 0
+    payload = torch.from_numpy(pool[pick]).to(device)
+    data[:, 1:-1] = torch.where(valid[:, None], payload, data[:, 1:-1])
+    return data.view(torch.float32)
+
+
+_SIGNED_K4 = [
+    # groups, aggs, distinct keys in a window; 8 groups: shared tier, 2**20: global
+    (8, ("min", "max", "sum"), True),
+    (8, ("max", "min"), False),
+    (1 << 20, ("min", "max"), False),  # no float sum: the one-pass atomic fold
+    (1 << 20, ("sum", "min", "max"), True),  # a float sum: the ordered cooperative fold
+]
+
+
+@pytest.mark.parametrize("groups,aggs,distinct", _SIGNED_K4)
+def test_ring_combine_signed_zeros_and_nan_bit_equal(cuda, groups, aggs, distinct):
+    """Min and max on the JAX package's order (-0.0 below +0.0, a NaN's own
+    bits passed on) on both tiers, bit-equal to ``ring_combine_grid_ref`` and
+    across two calls."""
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_grid_ref
+
+    cspec = CombineSpec(groups, aggs, np.float32)
+    n, slot = 4, 1024
+    data = _signed_staging(cuda, n, slot, cspec, seed=groups + len(aggs), distinct=distinct)
+    steps = ring_schedule(n, 2).raw_steps()
+    first = ring_combine_grid(n, slot, slot // 2, steps, cspec, data)
+    again = ring_combine_grid(n, slot, slot // 2, steps, cspec, data)
+    want = ring_combine_grid_ref(n, slot, slot // 2, steps, cspec, data)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    bits = first[1].view(torch.int32)
+    other_nans = torch.from_numpy(_NANS[1:].view(np.int32).copy()).to(cuda)
+    assert bool(torch.isin(bits, other_nans).any()) and bool((bits == -(2**31)).any())  # such a NaN and -0.0
+
+
+@pytest.mark.parametrize("cspec_args", [((1 << 14, ("sum",), np.int32), False),
+                                        ((1 << 14, ("sum", "max"), np.float32), True)])
+def test_ring_combine_global_tier_past_one_receiver_group(cuda, cspec_args):
+    """K4's global tier at n = 65 executors with tiny slots: two receiver
+    groups, bit-equal to the plain version (and K3's grid)."""
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_grid_ref, ring_combine_tier
+
+    (groups, aggs, dtype), distinct = cspec_args
+    cspec = CombineSpec(groups, aggs, dtype)
+    assert ring_combine_tier(cspec) == "global"
+    n, slot = 65, 4
+    data = _combine_data(cuda, n, slot, cspec, seed=65, distinct=distinct)
+    steps = ring_schedule(n, 2).raw_steps()
+    got = ring_combine_grid(n, slot, slot // 2, steps, cspec, data)
+    want = ring_combine_grid_ref(n, slot, slot // 2, steps, cspec, data)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,aggs", [(np.int32, ("sum",)), (np.float32, ("sum", "min"))])
+def test_ring_combine_global_tier_never_waits_for_the_device(cuda, dtype, aggs):
+    """The global tier's call issues its launches and returns: under
+    ``torch.cuda.set_sync_debug_mode("error")`` a host sync inside it
+    raises.  A first call outside builds the library; the checked call
+    takes a schedule not yet in the table cache (its upload included)."""
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_grid_ref, ring_combine_tier
+
+    cspec = CombineSpec(1 << 20, aggs, dtype)
+    assert ring_combine_tier(cspec) == "global"
+    n, slot = 4, 1536
+    data = _combine_data(cuda, n, slot, cspec, seed=7, distinct=True)
+    ring_combine_grid(n, slot, slot // 2, ring_schedule(n, 2).raw_steps(), cspec, data)
+    steps = ring_schedule(n, 3).raw_steps()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ring_combine_grid(n, slot, slot // 3, steps, cspec, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = ring_combine_grid_ref(n, slot, slot // 3, steps, cspec, data)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_fused_group_by_on_the_card_goes_through_k4(cuda):
     from sparkucx_tpu_torch.ops.relational import AggregateSpec, oracle_aggregate, run_grouped_aggregate
     from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid
@@ -402,6 +558,28 @@ def test_fused_group_by_on_the_card_goes_through_k4(cuda):
     ref = run_grouped_aggregate(["cuda"] * 4, replace(spec, combine="off"), keys, vals)
     for a, b, c in zip(got, ref, oracle_aggregate(keys, vals, spec.aggs)):
         assert np.array_equal(a, b) and np.array_equal(a, c)
+
+
+@pytest.mark.parametrize("combine", ["off", "dense"])
+def test_group_by_float_min_max_on_the_card_matches_the_cpu(cuda, combine):
+    """The unfused GROUP BY's segment reduce and the fused route's K4 on
+    CUDA tensors give the CPU route's bits (the JAX package's, as
+    tests/test_torch_relational.py holds them) over both signed zeros and
+    NaN."""
+    from sparkucx_tpu_torch.ops.relational import AggregateSpec, run_grouped_aggregate
+
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 40, size=4000).astype(np.uint32)
+    vals = np.where(rng.random((4000, 2)) < 0.5, np.float32(-0.0), np.float32(0.0))  # zeros of both signs
+    draw = rng.random(vals.shape)
+    vals[draw < 0.005] = _NANS[rng.integers(0, _NANS.size, size=int((draw < 0.005).sum()))]  # some groups meet none
+    vals[(draw >= 0.005) & (draw < 0.01)] = np.float32(1.0)
+    spec = AggregateSpec(4, 1000, 256, ("min", "max"), dtype=np.dtype(np.float32), partial=True, combine=combine,
+                         combine_groups=64 if combine == "dense" else 0)
+    got = run_grouped_aggregate(["cuda"] * 4, spec, keys, vals)
+    want = run_grouped_aggregate(["cpu"] * 4, spec, keys, vals)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
 def test_pallas_superstep_on_the_card_goes_through_k3(cuda):

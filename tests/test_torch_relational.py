@@ -7,7 +7,15 @@ tests/test_relational.py, the fused-combine cases of tests/test_fused_combine.py
 Tolerances: int32 results are exact, whole output buffers included (groups,
 identity tails, counts, recv totals).  float32 sums differ from JAX's by the
 order of additions only: relative 1e-5 on these sizes (tens of values per
-group, each rounding step 2**-24 relative).  float32 min/max are exact.
+group, each rounding step 2**-24 relative).  float32 min/max are exact, and
+bit-equal to JAX's where a group holds both signed zeros (in either order)
+or NaNs: -0.0 lies below +0.0, and a NaN propagates with its own bits,
+np.nan's and others of either sign; between NaNs of both signs min takes the
+positive one and max the negative one
+(``test_float_min_max_signed_zeros_and_nan_match_jax``).  No case puts two
+NaNs of one sign but different bits in a group, where XLA's pick depends on
+its order (tests/test_torch_combine.py pins the port's).  The seeded values
+of the other cases hold neither signed zeros nor NaN.
 Quantized results stay within ``QuantizeSpec.error_bound`` per partial row."""
 
 from dataclasses import replace
@@ -445,3 +453,66 @@ def test_q6_forecast_revenue_filtered_aggregate_matches_jax(rng):
     t, j = _run_both(N, kw, keys, values, mask=mask)
     _assert_exact(t, j)
     assert t[1][0, 0] == int((price * disc)[mask].sum()) and t[2][0] == mask.sum()
+
+
+# -- float32 min/max: signed zeros and NaN ----------------------------------
+
+#: NaNs of other bits than np.nan's (0x7fc00000): another positive one and a
+#: negative one (x86's 0/0)
+_POS_NAN, _NEG_NAN = np.array([0x7FC00001, 0xFFC00000], np.uint32).view(np.float32)
+_P, _N = _POS_NAN, _NEG_NAN
+#: each column's values per row: both zeros in both orders and NaNs, over keys
+#: [5, 5, 7, 7, 5, 5, 7, 7] (executor 0 holds rows 0-3, executor 1 rows 4-7);
+#: no group meets two NaNs of one sign with different bits, between which
+#: XLA picks by the order it meets them in
+_SIGNED_COLUMNS = {
+    "zeros": ([0.0, -0.0, 1, 1, -0.0, 0.0, 1, 1], [-0.0, 0.0, 1, 1, 0.0, -0.0, 1, 1]),
+    "nan": ([0.0, -0.0, 1, np.nan, -0.0, np.nan, 1, 1], [np.nan, 0.0, -0.0, 1, 0.0, -0.0, 1, np.nan]),
+    "nans of other bits": ([0.0, -0.0, 1, _N, -0.0, _N, 1, 1], [_P, 0.0, -0.0, 1, 0.0, -0.0, 1, _P]),
+    "nans of both signs": ([0.0, _N, 1, _P, -0.0, _P, 1, _N], [_P, 0.0, _N, 1, _N, -0.0, _P, 1]),
+}
+#: the bits of min a, min b, max a, max b in groups 5 and 7, where NaN came out
+_SIGNED_NAN_OUT = {
+    "nan": [np.nan] * 4,
+    "nans of other bits": [_N, _P, _N, _P],
+    "nans of both signs": [_P, _P, _N, _N],  # min takes the positive NaN, max the negative one
+}
+_SIGNED_ROUTES = {
+    "unfused": dict(partial=False),
+    "unfused partial": dict(partial=True),
+    "fused": dict(partial=True, combine="dense", combine_groups=16),
+}
+
+
+@pytest.mark.parametrize("route", sorted(_SIGNED_ROUTES))
+@pytest.mark.parametrize("case", sorted(_SIGNED_COLUMNS))
+def test_float_min_max_signed_zeros_and_nan_match_jax(route, case):
+    """n=2 GROUP BY of min and max over both columns, every output buffer
+    bit-equal to the JAX package's (``_assert_outputs_equal``)."""
+    keys = np.array([5, 5, 7, 7, 5, 5, 7, 7], np.uint32)
+    a, b = (np.asarray(c, np.float32) for c in _SIGNED_COLUMNS[case])
+    values = np.stack([a, b, a, b], axis=1)
+    kw = dict(num_executors=2, capacity=4, recv_capacity=16, aggs=("min", "min", "max", "max"),
+              dtype=np.dtype(np.float32), **_SIGNED_ROUTES[route])
+    got = _assert_outputs_equal(kw, keys, values, np.array([4, 4], np.int32))
+    (five,) = np.flatnonzero((got[0] == 5) & (got[2] > 0))
+    (seven,) = np.flatnonzero((got[0] == 7) & (got[2] > 0))
+    if case == "zeros":  # group 5: min -0.0 and max +0.0 from either order
+        assert got[1][five].view(np.uint32).tolist() == [0x80000000, 0x80000000, 0, 0]
+    else:  # every column of both groups meets a NaN, and passes its bits on
+        want = np.asarray(_SIGNED_NAN_OUT[case], np.float32).view(np.uint32).tolist()
+        assert got[1][[five, seven]].view(np.uint32).tolist() == [want] * 2
+
+
+def test_float_min_max_seeded_signed_values_match_jax(rng):
+    """Seeded keys and values drawn from {-0.0, +0.0, -1, 1} and two NaNs, one
+    of each sign, fused and unfused, against JAX."""
+    n, cap = 2, 32
+    keys = rng.integers(0, 6, size=n * cap).astype(np.uint32)
+    pool = np.array([-0.0, 0.0, -1.0, 1.0, np.nan, _NEG_NAN], np.float32)
+    values = pool[rng.integers(0, pool.size, size=(n * cap, 2))]
+    values[rng.random(values.shape) < 0.5] = 0.0  # mostly zeros: many groups hold both
+    for route in _SIGNED_ROUTES.values():
+        kw = dict(num_executors=n, capacity=cap, recv_capacity=32, aggs=("min", "max"),
+                  dtype=np.dtype(np.float32), **route)
+        _assert_outputs_equal(kw, keys, values, np.array([cap, cap - 3], np.int32))

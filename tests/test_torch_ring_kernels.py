@@ -1,5 +1,5 @@
 """K3's wrapper (sparkucx_tpu_torch/ops/ring_kernels.py ``ring_exchange_grid``):
-its window-table cache, its executor limit, and its grid on CPU tensors (the
+its window-table cache, its receiver groups, and its grid on CPU tensors (the
 plain version) against the JAX package's Pallas ring kernel under the
 interpreter (``_axis_grid`` with ``lowering='interpret'`` inside shard_map on
 the virtual CPU mesh of tests/conftest.py).  Grids compare bit for bit:
@@ -67,16 +67,52 @@ def test_window_table_cache_is_bounded_and_checks_schedules():
         ring_kernels.window_table(2, 4, 4, (((1, 1, 1),),), "cpu")
 
 
-def test_executor_limit_raises():
+@pytest.mark.parametrize("n", [1, 64, 65, 130])
+def test_receiver_groups_cover_the_window_table(n):
+    """K3 and K4's global tier launch once per group of at most
+    MAX_EXECUTORS receivers, at an offset into the window table: the groups
+    partition the receivers and the table, and every window of a group
+    belongs to one of its receivers."""
+    steps = torch_ici.ring_schedule(n, 1).raw_steps() if n > 1 else ()  # n = 1: the own slot alone
+    table = ring_kernels.ring_windows(n, 2, 2, steps)
+    per = table.shape[0] // n
+    groups = ring_kernels.receiver_groups(n, table.shape[0])
+    size = ring_kernels.MAX_EXECUTORS
+    assert [(g.first, g.receivers) for g in groups] == [(j, min(size, n - j)) for j in range(0, n, size)]
+    assert sum(g.windows for g in groups) == table.shape[0]
+    for g in groups:
+        assert g.first_window == g.first * per and g.windows == g.receivers * per
+        receivers = table[g.first_window : g.first_window + g.windows, 0]
+        assert receivers.min() == g.first and receivers.max() == g.first + g.receivers - 1
+
+
+def test_executor_count_has_no_limit():
+    """Past MAX_EXECUTORS executors K3 and both K4 tiers get past every check
+    to the device one (the card runs them in receiver groups), and the plain
+    versions run."""
+    from sparkucx_tpu_torch.ops.combine import CombineSpec
+
     n = ring_kernels.MAX_EXECUTORS + 1
-    data = torch.empty((n * n, 4), dtype=torch.int32, device="meta")
     steps = torch_ici.ring_schedule(n, 1).raw_steps()
-    with pytest.raises(ValueError, match=f"at most {ring_kernels.MAX_EXECUTORS} executors"):
+    data = torch.empty((n * n, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="runs on cuda or cpu tensors"):
         ring_kernels.ring_exchange_grid(n, 1, 1, steps, data)
-    # the plain version has no limit
     cpu = torch.arange(n * n * 2, dtype=torch.int32).view(n * n, 2)
     grid = ring_kernels.ring_exchange_grid(n, 1, 1, steps, cpu)
     assert torch.equal(grid, cpu.view(n, n, 1, 2).transpose(0, 1).reshape(-1, 2))
+    wide = CombineSpec(1 << 14, ("sum",), np.int32)  # 128 KB of accumulator: the global tier
+    narrow = CombineSpec(8, ("sum",), np.int32)
+    assert ring_kernels.ring_combine_tier(wide) == "global" and ring_kernels.ring_combine_tier(narrow) == "shared"
+    for cspec in (wide, narrow):
+        meta = torch.empty((n * n, cspec.row_width), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="runs on cuda or cpu tensors"):
+            ring_kernels.ring_combine_grid(n, 1, 1, steps, cspec, meta)
+    rows = torch.zeros((n * n, wide.row_width), dtype=torch.int32)
+    rows[:, 0] = torch.arange(n * n) % 7  # one row a region: key, value 1, count 1
+    rows[:, 1:] = 1
+    grid, vals, counts = ring_kernels.ring_combine_grid(n, 1, 1, steps, wide, rows)
+    assert torch.equal(grid, rows.view(n, n, 1, -1).transpose(0, 1).reshape(-1, wide.row_width))
+    assert int(counts.sum()) == n * n and int(vals.sum()) == n * n
 
 
 def test_executor_limit_matches_the_kernel_source():
@@ -85,25 +121,3 @@ def test_executor_limit_matches_the_kernel_source():
 
     src = (Path(ring_kernels.__file__).parent.parent / "csrc" / "ring_exchange.cu").read_text()
     assert int(re.search(r"constexpr int kMaxExecs = (\d+);", src).group(1)) == ring_kernels.MAX_EXECUTORS
-
-
-def test_global_tier_executor_limit_raises():
-    """K4's global tier copies its grid through K3's launch, so it takes at
-    most MAX_EXECUTORS executors on the card; the shared tier and the plain
-    version have no limit."""
-    from sparkucx_tpu_torch.ops.combine import CombineSpec
-
-    n = ring_kernels.MAX_EXECUTORS + 1
-    steps = torch_ici.ring_schedule(n, 1).raw_steps()
-    wide = CombineSpec(1 << 14, ("sum",), np.int32)  # 128 KB of accumulator: the global tier
-    assert ring_kernels.ring_combine_tier(wide) == "global"
-    data = torch.empty((n * n, wide.row_width), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match=f"at most {ring_kernels.MAX_EXECUTORS} executors"):
-        ring_kernels.ring_combine_grid(n, 1, 1, steps, wide, data)
-    narrow = CombineSpec(8, ("sum",), np.int32)
-    assert ring_kernels.ring_combine_tier(narrow) == "shared"
-    with pytest.raises(ValueError, match="runs on cuda or cpu tensors"):  # past the limit check
-        ring_kernels.ring_combine_grid(n, 1, 1, steps, narrow, data)
-    cpu = torch.zeros((n * n, wide.row_width), dtype=torch.int32)
-    grid, _vals, counts = ring_kernels.ring_combine_grid(n, 1, 1, steps, wide, cpu)
-    assert torch.equal(grid, cpu) and int(counts.sum()) == 0
