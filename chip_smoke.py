@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``sparkucx_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), then runs seventeen phases; any
+process per source, all started together), then runs nineteen phases; any
 failure propagates and the exit code is non-zero:
 
 1. environment: card, power limit, versions, kernel build time;
@@ -91,7 +91,22 @@ failure propagates and the exit code is non-zero:
     repeated twice with the caching allocator's counts; then the
     ``memmap`` receive mode, chunked, through the ShuffleManager SPI;
 17. ``measure_ici((2, 4, 8), 8192, 128)`` (``python -m
-    sparkucx_tpu_torch.perf.benchmark ici``) on the card.
+    sparkucx_tpu_torch.perf.benchmark ici``) on the card;
+18. TPC-H Q18 whole at SF=10 (lineitem 59,986,052, orders 15,000,000,
+    customer 1,500,000 rows from ``--seed``) on four executors sharing the
+    card: GROUP BY l_orderkey SUM(l_quantity) fused (K4), HAVING > 300,
+    ``run_hash_join`` with orders, ``run_hash_join`` with customer (K1 set
+    to 0 before each join and read after: 2n), ORDER BY o_totalprice DESC,
+    o_orderdate LIMIT 100, equal to a numpy oracle bit for bit; K1 held
+    against its plain version on both joins' recorded exchanges and timed
+    at the orders exchange's receivers; both joins timed on device tensors
+    with peak memory and a profile;
+19. SparkTC on four executors sharing the card: SparkTC.scala's graph (200
+    edges over 100 vertices) against ``oracle_tc``, and a graph of 8,192
+    edges over 4,096 vertices against a scipy reachability oracle, through
+    ``run_transitive_closure`` (K1 counted: n for the prep, 2n a round),
+    then every round timed, the last profiled and its exchanges' K1 held
+    against its plain version.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -1066,16 +1081,22 @@ def check_k1(device, label: str, src: torch.Tensor, plans, out_rows: int, reps: 
             "library_ms": l_ms, "bound_ms": b_ms, "rows": filled, "row_bytes": row_bytes}
 
 
-def check_k1_columnar(device, label: str, args) -> dict:
-    """:func:`check_k1` on one recorded ``exchange_sorted_rows`` call
-    (ops/columnar.py): its rows, and every receiver's plan."""
+def columnar_plans(args):
+    """One recorded ``exchange_sorted_rows(spec, rows, sizes)`` call of
+    ops/columnar.py -> (rows, every receiver's K1 plan and rows filled, its
+    receive capacity)."""
     from sparkucx_tpu_torch.ops.columnar import receive_plan
 
     cspec, rows, sizes = args
     rc = cspec.recv_capacity
-    plans = [(receive_plan(sizes, j, cspec.capacity, rc), min(int(sizes[:, j].sum()), rc))
-             for j in range(sizes.shape[0])]
-    return check_k1(device, label, rows, plans, rc)
+    return rows, [(receive_plan(sizes, j, cspec.capacity, rc), min(int(sizes[:, j].sum()), rc))
+                  for j in range(sizes.shape[0])], rc
+
+
+def check_k1_columnar(device, label: str, args) -> dict:
+    """:func:`check_k1` on one recorded ``exchange_sorted_rows`` call
+    (ops/columnar.py): its rows, and every receiver's plan."""
+    return check_k1(device, label, *columnar_plans(args))
 
 
 def shared_device_sort(device, n_rows: int = 25_000_000, n: int = 4) -> int:
@@ -2171,9 +2192,361 @@ def ici_benchmark(device, slot_rows=8192, held_width=8) -> dict:
     return r
 
 
+# -- phase 18: TPC-H Q18 whole at SF=10 ---------------------------------------------------
+
+Q18_SF10_ORDERS = 15_000_000
+Q18_SF10_ROWS = 59_986_052  # lineitem at SF=10
+Q18_SF10_CUSTOMERS = 1_500_000
+Q18_QUANTITY = 300  # TPC-H v3 §2.4.18.3, the substitution parameter's validation value
+
+
+def order_number(orderkeys: np.ndarray) -> np.ndarray:
+    """dbgen's sparse order keys back to the orders' numbers 0, 1, ..."""
+    k = orderkeys.astype(np.int64)
+    return (((k >> 5) << 3) | (k & 7)) - 1
+
+
+def q18_tables(seed: int, orders: int = Q18_SF10_ORDERS, rows: int = Q18_SF10_ROWS,
+               customers: int = Q18_SF10_CUSTOMERS):
+    """Q18's three tables per TPC-H v3 §4.2.3, from ``seed``: lineitem as in
+    phase 12 (``q18_lineitem``); orders with dbgen's sparse keys, o_custkey
+    in 1..customers never a multiple of 3, o_totalprice the int32 cents of
+    its lines' quantity x retail price (900.00-2100.00), o_orderdate in
+    [STARTDATE, ENDDATE - 151]; customer keys 1..customers, c_name's number
+    being the key.  Returns (l_orderkey, l_quantity (R, 1), o_orderkey,
+    o_vals (O, 3) = (custkey, totalprice, orderdate), c_custkey, c_vals (C,
+    1))."""
+    l_orderkey, l_quantity = q18_lineitem(seed, orders, rows)
+    rng = np.random.default_rng(seed + 100)
+    i = np.arange(1, orders + 1, dtype=np.int64)
+    o_orderkey = (((i >> 3) << 5) | (i & 7)).astype(np.uint32)
+    k = rng.integers(0, customers - customers // 3, orders)  # the k-th key that is not a multiple of 3
+    o_custkey = 3 * (k // 2) + 1 + (k % 2)
+    line_cents = l_quantity[:, 0].astype(np.int64) * rng.integers(90_000, 210_001, rows)
+    totalprice = np.bincount(order_number(l_orderkey), weights=line_cents, minlength=orders).astype(np.int32)
+    del line_cents
+    orderdate = rng.integers(_STARTDATE, _ENDDATE - 151 + 1, orders)
+    o_vals = np.stack([o_custkey, totalprice, orderdate], axis=1).astype(np.int32)
+    c_custkey = np.arange(1, customers + 1, dtype=np.uint32)
+    return l_orderkey, l_quantity, o_orderkey, o_vals, c_custkey, c_custkey.astype(np.int32)[:, None]
+
+
+def q18_result(orderkey, custkey, name, price, date, qty, limit: int = 100) -> np.ndarray:
+    """Q18's output rows (c_name, c_custkey, o_orderkey, o_orderdate,
+    o_totalprice, sum(l_quantity)) ORDER BY o_totalprice DESC, o_orderdate,
+    then o_orderkey (a tie-break, so the LIMIT is exact), LIMIT ``limit``."""
+    order = np.lexsort((orderkey.astype(np.int64), date, -price.astype(np.int64)))[:limit]
+    return np.stack([name[order], custkey[order], orderkey[order].astype(np.int64), date[order],
+                     price[order], qty[order]], axis=1).astype(np.int64)
+
+
+def torch_op_choices(device, rows: torch.Tensor, n: int) -> dict:
+    """The two torch-op choices of the join path, timed on the orders
+    exchange's rows: ``columnar.take_rows`` (16-byte rows gathered as
+    complex128 elements) against ``index_select`` over a seeded permutation,
+    and ``relational.row_cumsum`` (one flat scan) against ``torch.cumsum``
+    along dim 1 of (n, rows / n) int64."""
+    from sparkucx_tpu_torch.ops.columnar import take_rows
+    from sparkucx_tpu_torch.ops.relational import row_cumsum
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    idx = torch.randperm(rows.shape[0], device=device, generator=gen)
+    assert torch.equal(take_rows(rows, idx), rows.index_select(0, idx)), "take_rows differs from index_select"
+    counts = torch.randint(0, 3, (n, rows.shape[0] // n), dtype=torch.int64, device=device, generator=gen)
+    assert torch.equal(row_cumsum(counts), torch.cumsum(counts, dim=1)), "row_cumsum differs from torch.cumsum"
+    t = time_rounds({"take_rows": lambda: take_rows(rows, idx), "index_select": lambda: rows.index_select(0, idx),
+                     "row_cumsum": lambda: row_cumsum(counts), "cumsum_dim1": lambda: torch.cumsum(counts, dim=1)}, 5)
+    ms = {k: statistics.median(v) for k, v in t.items()}
+    log(f"  torch ops on the orders exchange's {rows.shape[0]} rows of {rows.shape[1] * rows.element_size()} B: "
+        f"take_rows {ms['take_rows']:.4f} ms against index_select {ms['index_select']:.4f} ms (equal rows); "
+        f"row_cumsum {ms['row_cumsum']:.4f} ms against cumsum along dim 1 {ms['cumsum_dim1']:.4f} ms "
+        f"over ({n}, {counts.shape[1]}) int64 (equal sums)")
+    del idx, counts
+    return ms
+
+
+def tpch_q18(device, seed: int, n: int = 4, orders: int = Q18_SF10_ORDERS, rows: int = Q18_SF10_ROWS,
+             customers: int = Q18_SF10_CUSTOMERS, reps: int = 3) -> dict:
+    """Phase 18: TPC-H Q18 whole at SF=10 on four executors sharing the card:
+    GROUP BY l_orderkey SUM(l_quantity) (``run_grouped_aggregate``, fused,
+    K4), HAVING > 300 on the host, ``run_hash_join`` with orders on
+    orderkey, ``run_hash_join`` with customer on custkey (K1 counted for
+    each join: 0 just before, read just after), ORDER BY LIMIT 100 on the
+    host, against a numpy oracle bit for bit; K1 held against its plain
+    version on each join's recorded exchanges, timed at the orders
+    exchange; then both joins timed on device tensors."""
+    from sparkucx_tpu_torch.ops import columnar
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather
+    from sparkucx_tpu_torch.ops.relational import (
+        AggregateSpec, JoinSpec, build_hash_join, plan_join_capacities, run_grouped_aggregate, run_hash_join,
+        shard_rows_host,
+    )
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid
+    from sparkucx_tpu_torch.utils.devices import upload
+
+    t0 = time.perf_counter()
+    l_orderkey, l_quantity, o_orderkey, o_vals, c_custkey, c_vals = q18_tables(seed, orders, rows, customers)
+    log(f"  SF=10: lineitem {rows}, orders {orders}, customer {customers} rows made from seed {seed} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    devices = [device] * n
+    stats = {"lineitem": rows, "orders": orders, "customer": customers}
+
+    # the numpy oracle: sums by order number, the qualifying orders, their customers
+    t0 = time.perf_counter()
+    sums = np.bincount(order_number(l_orderkey), weights=l_quantity[:, 0], minlength=orders)
+    q = np.flatnonzero(sums > Q18_QUANTITY)
+    want = q18_result(o_orderkey[q], o_vals[q, 0], o_vals[q, 0], o_vals[q, 1], o_vals[q, 2],
+                      sums[q].astype(np.int64))
+    oracle_s = time.perf_counter() - t0
+
+    # stage 1: GROUP BY l_orderkey SUM(l_quantity), fused (K4)
+    cap = -(-rows // n)
+    spec = AggregateSpec(n, cap, cap // 2, ("sum",), partial=True, combine="auto")
+    ring_combine_grid.launches = 0
+    (gk, gv, _), agg_s = wall(lambda: run_grouped_aggregate(devices, spec, l_orderkey, l_quantity))
+    k4 = ring_combine_grid.launches
+    assert k4 > 0, "Q18's GROUP BY did not run through K4"
+    assert gk.size == orders, f"{gk.size} groups, {orders} orders"
+    del l_orderkey, l_quantity
+    # stage 2: HAVING sum(l_quantity) > 300, on the host
+    qual = gv[:, 0] > Q18_QUANTITY
+    hk, hv = gk[qual], gv[qual]
+    log(f"  GROUP BY l_orderkey (fused, K4 launches {k4}): {gk.size} groups in {agg_s:.2f} s (host driver); "
+        f"{hk.size} orders with sum(l_quantity) > {Q18_QUANTITY}")
+
+    def counted_join(name, *args):
+        """One ``run_hash_join``, K1 counted: 0 just before, read just after;
+        its two exchanges' inputs kept."""
+        seen = {}
+        restore = recording(columnar, "exchange_sorted_rows", seen)
+        block_gather.launches = 0
+        try:
+            out, secs = wall(lambda: run_hash_join(devices, *args))
+        finally:
+            restore()
+        launches = block_gather.launches
+        assert launches == 2 * n, f"the {name} join launched K1 {launches} times, expected 2n = {2 * n}"
+        stats[f"{name}_k1_launches"] = launches
+        stats[f"{name}_host_driver_s"] = secs
+        return out, seen["calls"]
+
+    # stage 3: the qualifying aggregates (build) JOIN orders (probe) ON orderkey
+    (k3, b3, p3), calls3 = counted_join("orders", hk, hv.astype(np.int32), o_orderkey, o_vals)
+    # stage 4: those rows (build, keyed by custkey) JOIN customer (probe) ON custkey
+    build4 = np.concatenate([k3.astype(np.int32)[:, None], b3, p3[:, 1:]], axis=1)  # orderkey, sum, price, date
+    (k4_, b4, p4), calls4 = counted_join("customer", p3[:, 0].astype(np.uint32), build4, c_custkey, c_vals)
+    # stage 5: ORDER BY o_totalprice DESC, o_orderdate LIMIT 100, on the host
+    got = q18_result(b4[:, 0], k4_.astype(np.int64), p4[:, 0], b4[:, 2], b4[:, 3], b4[:, 1])
+    assert got.shape == want.shape and np.array_equal(got, want), "Q18 differs from the numpy oracle"
+    log(f"  Q18 SF=10: {len(k3)} joined orders, {len(k4_)} rows with their customers; the {len(got)} result rows "
+        f"equal the numpy oracle's bit for bit (oracle {oracle_s:.2f} s); K1 launches {stats['orders_k1_launches']} "
+        f"and {stats['customer_k1_launches']} (2n each); host drivers {stats['orders_host_driver_s']:.2f} s and "
+        f"{stats['customer_host_driver_s']:.2f} s; first row {got[0].tolist()}")
+    stats["result_rows"] = int(len(got))
+    stats["qualifying_orders"] = int(hk.size)
+
+    # K1 against its plain version on both joins' recorded exchanges, timed at the orders side's receivers
+    orders_args = calls3[1]  # the build side is exchanged first, then the probe side
+    for label, args in [("Q18's qualifying-orders exchange", calls3[0]), ("Q18's customer join, build", calls4[0]),
+                        ("Q18's customer exchange", calls4[1])]:
+        hold_k1(device, label, *columnar_plans(args))
+    log("  block_gather on the other three exchanges: every receiver equal to block_gather_ref")
+    stats["k1_orders"] = check_k1_columnar(device, "Q18's orders exchange", orders_args)
+    stats["torch_ops"] = torch_op_choices(device, orders_args[1], n)
+    del calls3, calls4, orders_args
+    torch.cuda.empty_cache()
+
+    # the two joins on device tensors: CUDA events, peak memory, one profile each
+    def device_join(bk, bv, pk, pv):
+        brecv, precv, out_cap = plan_join_capacities(bk, pk, n)
+        bcap, pcap = -(-len(bk) // n), -(-len(pk) // n)
+        jspec = JoinSpec(n, bcap, brecv, bv.shape[1], pcap, precv, pv.shape[1], out_cap)
+        b = shard_rows_host(bk, bv, n, bcap)
+        p = shard_rows_host(pk, pv, n, pcap)
+        args = (upload(b[0].astype(np.int64), device), upload(b[1], device), b[2],
+                upload(p[0].astype(np.int64), device), upload(p[1], device), p[2])
+        return build_hash_join(devices, jspec), args
+
+    for name, (bk, bv, pk, pv) in (("orders", (hk, hv.astype(np.int32), o_orderkey, o_vals)),
+                                   ("customer", (p3[:, 0].astype(np.uint32), build4, c_custkey, c_vals))):
+        fn, args = device_join(bk, bv, pk, pv)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        assert int(out[3].sum()) == (len(k3) if name == "orders" else len(k4_)), f"{name} join on device tensors"
+        stats[f"{name}_join_ms"] = time_ms(lambda: fn(*args), reps)
+        stats[f"{name}_join_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats[f"{name}_join_busy"] = profile_call(f"Q18 {name} join", lambda: fn(*args), top=8)
+        log(f"  {name} join on device tensors ({len(bk)} build x {len(pk)} probe rows): "
+            f"{stats[f'{name}_join_ms']:.4f} ms (median of {reps}), peak device memory "
+            f"{stats[f'{name}_join_peak_gb']:.2f} GB")
+        del fn, args, out
+    torch.cuda.empty_cache()
+    return stats
+
+
+# -- phase 19: SparkTC --------------------------------------------------------------------
+
+SPARKTC_EDGES, SPARKTC_VERTICES = 200, 100  # spark-examples SparkTC.scala numEdges / numVertices
+TC_SCALED_VERTICES = 4096
+
+
+def sparktc_graph(seed: int, edges: int, vertices: int) -> np.ndarray:
+    """SparkTC.scala's ``generateGraph``: distinct random edges (from, to),
+    from != to, until there are ``edges``, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((0, 2), np.int64)
+    while len(out) < edges:
+        e = rng.integers(0, vertices, size=(2 * edges, 2))
+        out = np.unique(np.concatenate([out, e[e[:, 0] != e[:, 1]]]), axis=0)
+    return out[rng.permutation(len(out))[:edges]].astype(np.uint32)
+
+
+def reachability_oracle(edges: np.ndarray, vertices: int) -> np.ndarray:
+    """The closure by scipy: every vertex's breadth-first reach, (a, a) only
+    where a lies on a cycle (a strongly connected component of more than one
+    vertex, or a self-loop).  (C, 2) uint32, ascending."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import breadth_first_order, connected_components
+
+    g = csr_matrix((np.ones(len(edges), np.int8), (edges[:, 0], edges[:, 1])), shape=(vertices, vertices))
+    _, label = connected_components(g, directed=True, connection="strong")
+    on_cycle = (np.bincount(label)[label] > 1) | (g.diagonal() > 0)
+    parts = []
+    for a in range(vertices):
+        reach = breadth_first_order(g, a, directed=True, return_predecessors=False)
+        reach = reach if on_cycle[a] else reach[reach != a]
+        parts.append(np.stack([np.full(reach.size, a), reach], axis=1))
+    pairs = np.concatenate(parts).astype(np.int64)
+    return pairs[np.argsort((pairs[:, 0] << 32) | pairs[:, 1])].astype(np.uint32)
+
+
+def pair_mix_host(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Host twin of ops/tc.py ``_pair_mix`` (numpy uint32 wraparound)."""
+    with np.errstate(over="ignore"):
+        h = a.astype(np.uint32) * np.uint32(2654435761)
+        h = h ^ ((h >> np.uint32(15)) | (b.astype(np.uint32) * np.uint32(40503)))
+        return h * np.uint32(2654435761)
+
+
+def tc_spec_for(edges: np.ndarray, closure: np.ndarray, n: int, headroom: float = 1.1):
+    """A ``TcSpec`` sized from the closure: each capacity the most any
+    executor needs in any round (the last round needs the most, since the
+    closure only grows), times ``headroom``, rounded up to 1024 rows."""
+    from sparkucx_tpu_torch.ops.relational import hash_owners_host
+    from sparkucx_tpu_torch.ops.tc import TcSpec
+
+    def most(owners, weights=None):
+        return float(np.bincount(owners, weights=weights, minlength=n).max())
+
+    def size(rows):
+        return int(-(-int(rows * headroom) // 1024) * 1024)
+
+    v = int(max(edges.max(), closure.max())) + 1
+    outdeg = np.bincount(edges[:, 0], minlength=v)
+    src_sorted = edges[np.argsort(edges[:, 0], kind="stable")]
+    first = np.cumsum(outdeg) - outdeg
+    a, b = closure[:, 0], closure[:, 1]
+    tc_recv = most(hash_owners_host(b, n))
+    join = most(hash_owners_host(b, n), outdeg[b])
+    # the new paths (a, c) of the last round, for the union exchange's receivers
+    reps = outdeg[b]
+    pos = np.repeat(first[b] - np.cumsum(reps) + reps, reps) + np.arange(int(reps.sum()))
+    new_c = src_sorted[pos, 1]
+    union = np.bincount(hash_owners_host(pair_mix_host(np.repeat(a, reps), new_c), n), minlength=n) \
+        + np.bincount(hash_owners_host(pair_mix_host(a, b), n), minlength=n)
+    tc_cap = size(max(most(hash_owners_host(pair_mix_host(a, b), n)), -(-len(edges) // n)))
+    join_cap = size(max(join, union.max() - tc_cap))
+    return TcSpec(n, size(-(-len(edges) // n)), tc_cap, join_cap,
+                  edge_recv_capacity=size(most(hash_owners_host(edges[:, 0], n))), tc_recv_capacity=size(tc_recv))
+
+
+def transitive_closure(device, label: str, edges: np.ndarray, want: np.ndarray, n: int = 4) -> dict:
+    """One graph through ``run_transitive_closure`` (K1 counted: 0 just
+    before, read just after; n for the prep, 2n a round), equal to ``want``
+    bit for bit; then the rounds again through ``build_tc_prep`` /
+    ``build_tc_step``, each timed on the host clock and between CUDA
+    events; the last round profiled and its two exchanges' K1 held against
+    its plain version (the union exchange timed)."""
+    from sparkucx_tpu_torch.ops import columnar
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather
+    from sparkucx_tpu_torch.ops.tc import build_tc_prep, build_tc_step, check_overflow, run_transitive_closure, shard_pairs
+
+    spec = tc_spec_for(edges, want, n)
+    devices = [device] * n
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    block_gather.launches = 0
+    (got, rounds), secs = wall(lambda: run_transitive_closure(devices, spec, edges))
+    launches = block_gather.launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert launches == n * (1 + 2 * rounds), f"{label}: K1 launched {launches} times in {rounds} rounds"
+    assert got.shape == want.shape and np.array_equal(got, want), f"{label}: the closure differs from the oracle"
+    log(f"  {label}: {len(edges)} edges, closure {len(got)} pairs equal to the oracle bit for bit, {rounds} rounds "
+        f"to the fixpoint, K1 launches {launches} (n + 2n a round); run_transitive_closure {secs:.3f} s; "
+        f"capacities a executor: tc {spec.tc_capacity}, tc_recv {spec.tc_recv}, join {spec.join_capacity}; "
+        f"peak device memory {peak:.2f} GB")
+
+    # the rounds again, each timed
+    e_src, e_dst, e_num = shard_pairs(np.unique(edges, axis=0), n, spec.edge_capacity, device)
+    prep = build_tc_prep(devices, spec)
+    step = build_tc_step(devices, spec)
+    sbk, sbc, btotal, _ = prep(e_src, e_dst, e_num)
+    state = shard_pairs(np.unique(edges, axis=0), n, spec.tc_capacity, device)
+    walls, events = [], []
+    for rnd in range(1, rounds + 1):
+        last = state
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        *state, count, overflow = step(*state, sbk, sbc, btotal)
+        end.record()
+        check_overflow(spec, overflow.cpu().numpy(), rnd)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    assert int(count[0]) == len(want), f"{label}: the timed rounds end at {int(count[0])} pairs"
+    log(f"  {label} by round, wall ms: {' '.join(f'{x:.3f}' for x in walls)}; between CUDA events ms: "
+        f"{' '.join(f'{x:.3f}' for x in events)}")
+    busy = profile_call(f"{label}, the last round", lambda: step(*last, sbk, sbc, btotal), top=8)
+    seen = {}
+    restore = recording(columnar, "exchange_sorted_rows", seen)
+    try:
+        step(*last, sbk, sbc, btotal)
+    finally:
+        restore()
+    tc_args, union_args = seen["calls"]
+    hold_k1(device, f"{label}, the last round's tc exchange", *columnar_plans(tc_args))
+    k1 = check_k1_columnar(device, f"{label}, the last round's union exchange", union_args)
+    del seen, tc_args, union_args, state, last, sbk, sbc
+    torch.cuda.empty_cache()
+    return {"edges": int(len(edges)), "closure": int(len(got)), "rounds": rounds, "k1_launches": launches,
+            "driver_s": secs, "peak_gb": peak, "round_wall_ms": walls, "round_event_ms": events, "busy_last": busy,
+            "k1_union": k1, "tc_capacity": spec.tc_capacity, "join_capacity": spec.join_capacity}
+
+
+def spark_tc(device, seed: int, vertices: int = TC_SCALED_VERTICES) -> dict:
+    """Phase 19: SparkTC's own graph (200 edges over 100 vertices) against
+    the port's ``oracle_tc``, and a graph of the same 2:1 edge-vertex ratio
+    at ``vertices`` against the scipy reachability oracle."""
+    from sparkucx_tpu_torch.ops.tc import oracle_tc
+
+    out = {}
+    edges = sparktc_graph(seed, SPARKTC_EDGES, SPARKTC_VERTICES)
+    out["sparktc"] = transitive_closure(device, "SparkTC's graph", edges, oracle_tc(edges))
+    edges = sparktc_graph(seed + 1, 2 * vertices, vertices)
+    t0 = time.perf_counter()
+    want = reachability_oracle(edges, vertices)
+    log(f"  scaled graph: {vertices} vertices, {len(edges)} edges; scipy oracle {len(want)} pairs in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out["scaled"] = transitive_closure(device, f"the scaled graph (V={vertices})", edges, want)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--seed", type=int, default=SEED, help="seed of the TPC-H data (phases 11-12)")
+    parser.add_argument("--seed", type=int, default=SEED, help="seed of the TPC-H data and the graphs (phases 11-12, 18-19)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs one NVIDIA GPU", file=sys.stderr)
@@ -2270,6 +2643,12 @@ def main() -> int:
     log("phase 17: python -m sparkucx_tpu_torch.perf.benchmark ici on the card (measure_ici)")
     ici = ici_benchmark(device)
 
+    log("phase 18: TPC-H Q18 whole at SF=10, four executors sharing the card (GROUP BY, two hash joins)")
+    q18 = tpch_q18(device, args.seed + 2)
+
+    log("phase 19: SparkTC, four executors sharing the card (run_transitive_closure)")
+    tc = spark_tc(device, args.seed + 3)
+
     log(json.dumps({"main_path": {k: v for k, v in stats.items() if k != "launches"}}))
     sort_stats["k6"] = {k: table[2][k] for k in ("steps_ms", "design_bytes_ms", "first_design_bound_ms")}
     log(json.dumps({"terasort": sort_stats}))
@@ -2277,6 +2656,7 @@ def main() -> int:
     log(json.dumps({"pallas_superstep": superstep}))
     log(json.dumps({"fused_send_side": fused, "chunked_plan": chunked}))
     log(json.dumps({"ici": {str(n): p for n, p in ici["per_n"].items()}, "ici_held": ici["held"]}))
+    log(json.dumps({"tpch_q18_sf10": q18, "sparktc": tc}))
     log(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

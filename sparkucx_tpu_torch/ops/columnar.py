@@ -116,12 +116,24 @@ def exchange_sorted_rows(spec: ColumnarSpec, rows: torch.Tensor, sizes: np.ndarr
     return recv, np.ascontiguousarray(sizes.T)
 
 
+def take_rows(rows: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``rows.index_select(0, index)`` for a contiguous (R, W) tensor.  Rows
+    of exactly 16 bytes are taken as ONE complex128 element each, a move of
+    their bits that computes nothing: PyTorch's row gather of 16-byte rows
+    runs more than ten times slower on an NVIDIA H100 80GB HBM3 at 700 W
+    than the same gather of complex128 elements (``chip_smoke.py`` phase 18
+    times both on its orders exchange; PERF.md)."""
+    if rows.dim() == 2 and rows.shape[1] * rows.element_size() == 16 and rows.is_contiguous():
+        return rows.view(torch.complex128).reshape(-1).index_select(0, index).view(rows.dtype).view(-1, rows.shape[1])
+    return rows.index_select(0, index)
+
+
 def _sort_by_owner(spec: ColumnarSpec, rows: torch.Tensor, owners: torch.Tensor) -> torch.Tensor:
     """Each executor's rows stably sorted by destination (padding, owner == n, last)."""
     n, cap = spec.num_executors, spec.capacity
     order = torch.sort(owners.reshape(n, cap), dim=1, stable=True).indices
     order = order + torch.arange(n, device=rows.device)[:, None] * cap
-    return rows.index_select(0, order.reshape(-1))
+    return take_rows(rows, order.reshape(-1))
 
 
 def build_columnar_shuffle(devices: Sequence, spec: ColumnarSpec):

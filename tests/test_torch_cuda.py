@@ -747,3 +747,86 @@ def test_kernel_tables_upload_without_waiting(cuda):
     torch.cuda.synchronize(cuda)
     assert torch.equal(grid, ring_exchange_grid_ref(n, slot, slot // 2, steps, data))
     assert torch.equal(got, block_gather_ref(*p, data, int(counts.sum())))
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left_outer", "left_semi", "left_anti", "right_outer", "full_outer"])
+def test_hash_join_on_the_card_matches_the_cpu(cuda, join_type):
+    """``build_hash_join`` on CUDA executors: every output buffer bit-equal to
+    the CPU route's (the JAX package's, as tests/test_torch_join.py holds
+    it), K1 launched once a receiver and side."""
+    from sparkucx_tpu_torch.ops.relational import JoinSpec, build_hash_join
+
+    n, cap = 4, 300
+    rng = np.random.default_rng(21)
+    bk = rng.integers(0, 200, size=n * cap).astype(np.int64)
+    pk = rng.integers(100, 300, size=n * cap).astype(np.int64)
+    bk[:3] = 0xFFFFFFFF
+    pk[5:7] = 0xFFFFFFFF
+    bv = rng.integers(-99, 99, size=(n * cap, 2)).astype(np.int32)
+    pv = rng.integers(-99, 99, size=(n * cap, 3)).astype(np.int32)
+    bn, pn = np.array([cap, 0, 17, cap - 1]), np.array([cap, cap, 1, 250])
+    spec = JoinSpec(n, cap, n * cap, 2, cap, n * cap, 3, 4 * n * cap, join_type=join_type)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        before = block_gather.launches
+        outs[str(dev)] = build_hash_join([dev] * n, spec)(t(bk), t(bv), bn, t(pk), t(pv), pn)
+        if dev is cuda:
+            torch.cuda.synchronize()
+            assert block_gather.launches - before == 2 * n
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    assert int(card[3].sum()) > 0
+    for a, b in zip(cpu, card):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b.cpu())
+        else:
+            assert np.array_equal(a, b)
+
+
+def test_transitive_closure_on_the_card_matches_the_cpu(cuda):
+    from sparkucx_tpu_torch.ops.tc import TcSpec, oracle_tc, run_transitive_closure
+
+    rng = np.random.default_rng(3)
+    edges = rng.integers(0, 60, size=(120, 2)).astype(np.uint32)
+    edges[:10] += np.uint32(2**31)  # vertex ids past 2**31
+    spec = TcSpec(4, 64, 2048, 4096)
+    before = block_gather.launches
+    got, rounds = run_transitive_closure(["cuda"] * 4, spec, edges)
+    assert block_gather.launches - before == 4 * (1 + 2 * rounds)
+    want, want_rounds = run_transitive_closure(["cpu"] * 4, spec, edges)
+    assert rounds == want_rounds and np.array_equal(got, want)
+    assert np.array_equal(got, oracle_tc(edges))
+
+
+def test_plan_driven_aggregate_on_the_card_goes_through_k4(cuda):
+    from sparkucx_tpu_torch.ops.relational import AggregateSpec, run_grouped_aggregate, run_plan_grouped_aggregate
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid
+    from sparkucx_tpu_torch.ops.skew import ExchangePlan
+
+    rng = np.random.default_rng(6)
+    keys = rng.integers(0, 60, size=3000).astype(np.uint32)
+    vals = rng.integers(-100, 100, size=(3000, 3)).astype(np.int32)
+    spec = AggregateSpec(4, 800, 256, ("sum", "min", "max"), partial=True, combine="dense", combine_groups=64)
+    plan = ExchangePlan(slot_rows=256, chunks_per_round=(4,), combine="dense")
+    before = ring_combine_grid.launches
+    got = run_plan_grouped_aggregate(["cuda"] * 4, spec, plan, keys, vals)
+    assert ring_combine_grid.launches - before == 4
+    want = run_grouped_aggregate(["cpu"] * 4, replace(spec, combine="off"), keys, vals)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.int64])
+def test_take_rows_of_16_bytes_moves_bits(cuda, dtype):
+    """ops/columnar.take_rows gathers 16-byte rows as complex128 elements:
+    every bit moved as ``index_select`` moves it, NaN payloads included."""
+    from sparkucx_tpu_torch.ops.columnar import take_rows
+
+    lanes = 16 // torch.empty(0, dtype=dtype).element_size()
+    bits = torch.randint(-(2**31), 2**31 - 1, (5000, 16 // 4), dtype=torch.int32, device=cuda)
+    bits[:4, 0] = torch.tensor([0x7FC00001, 0x7F800001, -4194303, -1], dtype=torch.int32, device=cuda)
+    rows = bits.view(dtype).view(-1, lanes)
+    idx = torch.randperm(5000, device=cuda)
+    got = take_rows(rows, idx)
+    assert got.dtype == dtype and got.shape == (5000, lanes)
+    assert torch.equal(got.view(torch.int32), rows.index_select(0, idx).view(torch.int32))
