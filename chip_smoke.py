@@ -66,7 +66,11 @@ failure propagates and the exit code is non-zero:
 12. TPC-H Q18 stage 1 at SF=1 (GROUP BY l_orderkey over 6,001,215 rows, G =
     2**23): fused (K4), unfused (K1) and numpy bit-exact; K4 and K1 held
     against their plain versions on the runs' own inputs, K4 once more
-    under ``torch.cuda.set_sync_debug_mode("error")``;
+    under ``torch.cuda.set_sync_debug_mode("error")``; then the same GROUP
+    BY through ``run_plan_grouped_aggregate`` in four quota sub-rounds (K4
+    set to 0 before and read after: once a sub-round), equal to the fused
+    route bit for bit, K4 held against its plain version on every recorded
+    sub-round and timed on the first;
 13. GroupByTest at phase 3's widths on four executors sharing the card under
     ``exchange.impl=pallas`` (K2 seal, K3, then K1 compaction; every count
     set to 0 just before ``run_exchange`` and read just after) against
@@ -94,11 +98,14 @@ failure propagates and the exit code is non-zero:
     sparkucx_tpu_torch.perf.benchmark ici``) on the card;
 18. TPC-H Q18 whole at SF=10 (lineitem 59,986,052, orders 15,000,000,
     customer 1,500,000 rows from ``--seed``) on four executors sharing the
-    card: GROUP BY l_orderkey SUM(l_quantity) fused (K4), HAVING > 300,
-    ``run_hash_join`` with orders, ``run_hash_join`` with customer (K1 set
-    to 0 before each join and read after: 2n), ORDER BY o_totalprice DESC,
-    o_orderdate LIMIT 100, equal to a numpy oracle bit for bit; K1 held
-    against its plain version on both joins' recorded exchanges and timed
+    card: GROUP BY l_orderkey SUM(l_quantity) fused (K4; every group's sum
+    equal to the numpy oracle's, K4 held against its plain version on the
+    recorded exchange and timed), HAVING > 300, ``run_hash_join`` with
+    orders, ``run_hash_join`` with customer (K1 set to 0 before each join
+    and read after: 2n), ORDER BY o_totalprice DESC, o_orderdate LIMIT
+    100; every row of both joins and the 100 result rows equal to the
+    numpy oracle's bit for bit; K1 held against its plain version on both
+    joins' recorded exchanges and timed
     at the orders exchange's receivers; both joins timed on device tensors
     with peak memory and a profile;
 19. SparkTC on four executors sharing the card: SparkTC.scala's graph (200
@@ -1621,7 +1628,8 @@ def q18_lineitem(seed: int, orders: int = Q18_ORDERS, rows: int = Q18_ROWS):
 def tpch_q18_stage1(device, seed: int, n: int = 4, orders: int = Q18_ORDERS, rows: int = Q18_ROWS) -> dict:
     """Phase 12: GROUP BY l_orderkey SUM(l_quantity), int32, G = 2**23 (K4's
     global tier), fused against unfused and numpy, bit-exact; then K4 at
-    this run's shapes against its plain version, timed."""
+    this run's shapes against its plain version, timed; then the same GROUP
+    BY through the plan-driven aggregate (:func:`plan_driven_aggregate`)."""
     from dataclasses import replace
 
     from sparkucx_tpu_torch.ops import columnar, relational
@@ -1674,8 +1682,53 @@ def tpch_q18_stage1(device, seed: int, n: int = 4, orders: int = Q18_ORDERS, row
     del k4_args
     log(f"  ring_combine_grid at Q18's shapes: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
+    plan = plan_driven_aggregate(device, n, resolved, keys, qty, fused)
     return {"rows": rows, "groups": int(uniq.size), "combine_groups": g, "fused_s": fused_s,
             "unfused_s": unfused_s, "k4_launches": launches, "k1_launches_unfused": k1_launches, "k1": k1,
+            "k4": {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shape")},
+            "plan_driven": plan}
+
+
+def plan_driven_aggregate(device, n: int, spec, keys: np.ndarray, values: np.ndarray, want, subrounds: int = 4) -> dict:
+    """The same GROUP BY through ``run_plan_grouped_aggregate``: an
+    ``ExchangePlan`` of ``subrounds`` quota sub-rounds (a quarter of the
+    slot each), K4 once a sub-round (counted: 0 just before, read just
+    after), equal to the fused route's ``want`` bit for bit; K4 held against
+    its plain version on every recorded sub-round and timed on the first."""
+    from sparkucx_tpu_torch.ops import ici_exchange
+    from sparkucx_tpu_torch.ops.relational import run_plan_grouped_aggregate
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_combine_grid_ref
+    from sparkucx_tpu_torch.ops.skew import ExchangePlan
+
+    plan = ExchangePlan(slot_rows=-(-spec.capacity // subrounds), chunks_per_round=(subrounds,), combine="dense")
+    seen = {}
+    restore = recording(ici_exchange, "combine_axis_grid", seen)
+    ring_combine_grid.launches = 0
+    try:
+        got, secs = wall(lambda: run_plan_grouped_aggregate([device] * n, spec, plan, keys, values))
+    finally:
+        restore()
+    launches = ring_combine_grid.launches
+    assert launches == subrounds, f"the plan-driven aggregate launched K4 {launches} times, expected {subrounds}"
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), "the plan-driven aggregate differs from the fused route"
+    calls = seen.pop("calls")
+    for sn, slot, sched, flat, cspec in calls[1:]:
+        w, steps = slot // sched.chunks, sched.raw_steps()
+        got_k4 = ring_combine_grid(sn, slot, w, steps, cspec, flat)
+        want_k4 = ring_combine_grid_ref(sn, slot, w, steps, cspec, flat)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in zip(got_k4, want_k4)), (
+            "ring_combine_grid at a plan sub-round differs from its plain version")
+        del got_k4, want_k4
+    row = k4_timings(device, calls[0])
+    del calls, seen
+    torch.cuda.empty_cache()
+    log(f"  run_plan_grouped_aggregate, {subrounds} sub-rounds of {plan.slot_rows} rows a slot: equal to the fused "
+        f"route bit for bit in {secs:.2f} s (host driver); K4 launches {launches}, every sub-round equal to "
+        f"ring_combine_grid_ref; the first {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+        f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms  [{row['shape']}]")
+    return {"subrounds": subrounds, "quota_rows": plan.slot_rows, "host_driver_s": secs, "k4_launches": launches,
             "k4": {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shape")}}
 
 
@@ -2231,10 +2284,11 @@ def q18_tables(seed: int, orders: int = Q18_SF10_ORDERS, rows: int = Q18_SF10_RO
     return l_orderkey, l_quantity, o_orderkey, o_vals, c_custkey, c_custkey.astype(np.int32)[:, None]
 
 
-def q18_result(orderkey, custkey, name, price, date, qty, limit: int = 100) -> np.ndarray:
+def q18_result(orderkey, custkey, name, price, date, qty, limit: int | None = 100) -> np.ndarray:
     """Q18's output rows (c_name, c_custkey, o_orderkey, o_orderdate,
     o_totalprice, sum(l_quantity)) ORDER BY o_totalprice DESC, o_orderdate,
-    then o_orderkey (a tie-break, so the LIMIT is exact), LIMIT ``limit``."""
+    then o_orderkey (a tie-break, so the LIMIT is exact), LIMIT ``limit``
+    (every row with ``None``)."""
     order = np.lexsort((orderkey.astype(np.int64), date, -price.astype(np.int64)))[:limit]
     return np.stack([name[order], custkey[order], orderkey[order].astype(np.int64), date[order],
                      price[order], qty[order]], axis=1).astype(np.int64)
@@ -2276,14 +2330,12 @@ def tpch_q18(device, seed: int, n: int = 4, orders: int = Q18_SF10_ORDERS, rows:
     host, against a numpy oracle bit for bit; K1 held against its plain
     version on each join's recorded exchanges, timed at the orders
     exchange; then both joins timed on device tensors."""
-    from sparkucx_tpu_torch.ops import columnar
+    from sparkucx_tpu_torch.ops import columnar, relational
     from sparkucx_tpu_torch.ops.block_kernels import block_gather
     from sparkucx_tpu_torch.ops.relational import (
-        AggregateSpec, JoinSpec, build_hash_join, plan_join_capacities, run_grouped_aggregate, run_hash_join,
-        shard_rows_host,
+        AggregateSpec, prepare_hash_join, run_grouped_aggregate, run_hash_join,
     )
     from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid
-    from sparkucx_tpu_torch.utils.devices import upload
 
     t0 = time.perf_counter()
     l_orderkey, l_quantity, o_orderkey, o_vals, c_custkey, c_vals = q18_tables(seed, orders, rows, customers)
@@ -2296,24 +2348,43 @@ def tpch_q18(device, seed: int, n: int = 4, orders: int = Q18_SF10_ORDERS, rows:
     t0 = time.perf_counter()
     sums = np.bincount(order_number(l_orderkey), weights=l_quantity[:, 0], minlength=orders)
     q = np.flatnonzero(sums > Q18_QUANTITY)
-    want = q18_result(o_orderkey[q], o_vals[q, 0], o_vals[q, 0], o_vals[q, 1], o_vals[q, 2],
-                      sums[q].astype(np.int64))
+    oracle_rows = (o_orderkey[q], o_vals[q, 0], o_vals[q, 0], o_vals[q, 1], o_vals[q, 2], sums[q].astype(np.int64))
+    want_all, want = q18_result(*oracle_rows, limit=None), q18_result(*oracle_rows)
     oracle_s = time.perf_counter() - t0
 
-    # stage 1: GROUP BY l_orderkey SUM(l_quantity), fused (K4)
+    # stage 1: GROUP BY l_orderkey SUM(l_quantity), fused (K4), every group against the oracle's sums
     cap = -(-rows // n)
     spec = AggregateSpec(n, cap, cap // 2, ("sum",), partial=True, combine="auto")
+    seen = {}
+    restore = recording(relational, "combine_axis_grid", seen)
     ring_combine_grid.launches = 0
-    (gk, gv, _), agg_s = wall(lambda: run_grouped_aggregate(devices, spec, l_orderkey, l_quantity))
+    try:
+        (gk, gv, _), agg_s = wall(lambda: run_grouped_aggregate(devices, spec, l_orderkey, l_quantity))
+    finally:
+        restore()
     k4 = ring_combine_grid.launches
     assert k4 > 0, "Q18's GROUP BY did not run through K4"
     assert gk.size == orders, f"{gk.size} groups, {orders} orders"
+    assert np.array_equal(gk, o_orderkey), "Q18's GROUP BY keys differ from the orders' keys"
+    assert gv.shape == (orders, 1) and np.array_equal(gv[:, 0], sums.astype(np.int32)), (
+        "Q18's GROUP BY sums differ from the numpy oracle's")
+    stats["k4_launches"] = k4
     del l_orderkey, l_quantity
     # stage 2: HAVING sum(l_quantity) > 300, on the host
     qual = gv[:, 0] > Q18_QUANTITY
     hk, hv = gk[qual], gv[qual]
-    log(f"  GROUP BY l_orderkey (fused, K4 launches {k4}): {gk.size} groups in {agg_s:.2f} s (host driver); "
-        f"{hk.size} orders with sum(l_quantity) > {Q18_QUANTITY}")
+    assert hk.size == q.size and np.array_equal(hk, o_orderkey[q]), "HAVING keeps other orders than the oracle's"
+    log(f"  GROUP BY l_orderkey (fused, K4 launches {k4}): {gk.size} groups in {agg_s:.2f} s (host driver), "
+        f"every key and sum equal to the numpy oracle's; {hk.size} orders with sum(l_quantity) > {Q18_QUANTITY}")
+    # K4 against its plain version on the GROUP BY's recorded exchange, timed
+    row = k4_timings(device, seen.pop("args"))
+    del seen
+    stats["k4"] = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "shape")}
+    log(f"  ring_combine_grid at Q18 SF=10's shapes: equal to ring_combine_grid_ref; {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms  "
+        f"[{row['shape']}]")
+    del row
+    torch.cuda.empty_cache()
 
     def counted_join(name, *args):
         """One ``run_hash_join``, K1 counted: 0 just before, read just after;
@@ -2333,14 +2404,22 @@ def tpch_q18(device, seed: int, n: int = 4, orders: int = Q18_SF10_ORDERS, rows:
 
     # stage 3: the qualifying aggregates (build) JOIN orders (probe) ON orderkey
     (k3, b3, p3), calls3 = counted_join("orders", hk, hv.astype(np.int32), o_orderkey, o_vals)
+    by_key = np.argsort(k3, kind="stable")
+    assert (k3.size == q.size and np.array_equal(k3[by_key], o_orderkey[q])
+            and np.array_equal(b3[by_key, 0], sums[q].astype(np.int32)) and np.array_equal(p3[by_key], o_vals[q])), (
+        "the orders join's rows differ from the numpy oracle's")
     # stage 4: those rows (build, keyed by custkey) JOIN customer (probe) ON custkey
     build4 = np.concatenate([k3.astype(np.int32)[:, None], b3, p3[:, 1:]], axis=1)  # orderkey, sum, price, date
     (k4_, b4, p4), calls4 = counted_join("customer", p3[:, 0].astype(np.uint32), build4, c_custkey, c_vals)
+    joined = (b4[:, 0], k4_.astype(np.int64), p4[:, 0], b4[:, 2], b4[:, 3], b4[:, 1])
+    every = q18_result(*joined, limit=None)
+    assert every.shape == want_all.shape and np.array_equal(every, want_all), (
+        "the customer join's rows differ from the numpy oracle's")
     # stage 5: ORDER BY o_totalprice DESC, o_orderdate LIMIT 100, on the host
-    got = q18_result(b4[:, 0], k4_.astype(np.int64), p4[:, 0], b4[:, 2], b4[:, 3], b4[:, 1])
+    got = q18_result(*joined)
     assert got.shape == want.shape and np.array_equal(got, want), "Q18 differs from the numpy oracle"
-    log(f"  Q18 SF=10: {len(k3)} joined orders, {len(k4_)} rows with their customers; the {len(got)} result rows "
-        f"equal the numpy oracle's bit for bit (oracle {oracle_s:.2f} s); K1 launches {stats['orders_k1_launches']} "
+    log(f"  Q18 SF=10: {len(k3)} joined orders, {len(k4_)} rows with their customers, every row of both joins and "
+        f"the {len(got)} result rows equal to the numpy oracle's bit for bit (oracle {oracle_s:.2f} s); K1 launches {stats['orders_k1_launches']} "
         f"and {stats['customer_k1_launches']} (2n each); host drivers {stats['orders_host_driver_s']:.2f} s and "
         f"{stats['customer_host_driver_s']:.2f} s; first row {got[0].tolist()}")
     stats["result_rows"] = int(len(got))
@@ -2357,20 +2436,10 @@ def tpch_q18(device, seed: int, n: int = 4, orders: int = Q18_SF10_ORDERS, rows:
     del calls3, calls4, orders_args
     torch.cuda.empty_cache()
 
-    # the two joins on device tensors: CUDA events, peak memory, one profile each
-    def device_join(bk, bv, pk, pv):
-        brecv, precv, out_cap = plan_join_capacities(bk, pk, n)
-        bcap, pcap = -(-len(bk) // n), -(-len(pk) // n)
-        jspec = JoinSpec(n, bcap, brecv, bv.shape[1], pcap, precv, pv.shape[1], out_cap)
-        b = shard_rows_host(bk, bv, n, bcap)
-        p = shard_rows_host(pk, pv, n, pcap)
-        args = (upload(b[0].astype(np.int64), device), upload(b[1], device), b[2],
-                upload(p[0].astype(np.int64), device), upload(p[1], device), p[2])
-        return build_hash_join(devices, jspec), args
-
+    # the two joins on device tensors (run_hash_join's own set-up): CUDA events, peak memory, one profile each
     for name, (bk, bv, pk, pv) in (("orders", (hk, hv.astype(np.int32), o_orderkey, o_vals)),
                                    ("customer", (p3[:, 0].astype(np.uint32), build4, c_custkey, c_vals))):
-        fn, args = device_join(bk, bv, pk, pv)
+        fn, args, _ = prepare_hash_join(devices, bk, bv, pk, pv)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         out = fn(*args)

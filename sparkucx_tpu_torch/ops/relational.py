@@ -1088,7 +1088,7 @@ def plan_join_capacities(
     return brecv, precv, max(1, int(per_shard.max()))
 
 
-def run_hash_join(
+def prepare_hash_join(
     devices: Optional[Sequence],
     build_keys: np.ndarray,
     build_vals: np.ndarray,
@@ -1100,15 +1100,11 @@ def run_hash_join(
     join_type: str = "inner",
     num_executors: Optional[int] = None,
 ):
-    """Host driver of the equi-join: plan the receive and output capacities
-    exactly (:func:`plan_join_capacities`), shard both sides, run the join
-    and check the device placement against the host plan.  ``devices``:
-    one entry per executor, or ``None`` with ``num_executors`` executors on
-    ``cuda``.  Returns flat (keys uint32, build_rows, probe_rows) in
-    executor-concatenated order (compare as a multiset, as ``oracle_join``'s),
-    with a fourth ``matched`` bool array for an outer ``join_type``;
-    'left_semi' / 'left_anti' zero the build lanes.  ``build_capacity`` /
-    ``probe_capacity`` override the tight per-executor input capacities."""
+    """The set-up of :func:`run_hash_join`: plan the receive and output
+    capacities exactly (:func:`plan_join_capacities`), build the join and
+    shard both sides onto the executors' device.  Returns ``(fn, args,
+    (build_recv, probe_recv, out_capacity))``; ``fn(*args)`` runs the join
+    on the device tensors alone (what a timing of the join calls)."""
     if build_vals.dtype != probe_vals.dtype:
         raise ValueError(
             f"build/probe value dtypes must match (keys bitcast through them): "
@@ -1128,10 +1124,39 @@ def run_hash_join(
     fn = build_hash_join(devices, spec)
     bk, bv, bn = shard_rows_host(build_keys, build_vals, n, bcap, value_dtype=spec.dtype)
     pk, pv, pn = shard_rows_host(probe_keys, probe_vals, n, pcap, value_dtype=spec.dtype)
-    outs = fn(
+    args = (
         upload(bk.astype(np.int64), device), upload(bv, device), bn,
         upload(pk.astype(np.int64), device), upload(pv, device), pn,
     )
+    return fn, args, (brecv, precv, out_cap)
+
+
+def run_hash_join(
+    devices: Optional[Sequence],
+    build_keys: np.ndarray,
+    build_vals: np.ndarray,
+    probe_keys: np.ndarray,
+    probe_vals: np.ndarray,
+    impl: str = "auto",
+    build_capacity: Optional[int] = None,
+    probe_capacity: Optional[int] = None,
+    join_type: str = "inner",
+    num_executors: Optional[int] = None,
+):
+    """Host driver of the equi-join: set it up (:func:`prepare_hash_join`),
+    run it and check the device placement against the host plan.
+    ``devices``: one entry per executor, or ``None`` with ``num_executors``
+    executors on ``cuda``.  Returns flat (keys uint32, build_rows,
+    probe_rows) in executor-concatenated order (compare as a multiset, as
+    ``oracle_join``'s), with a fourth ``matched`` bool array for an outer
+    ``join_type``; 'left_semi' / 'left_anti' zero the build lanes.
+    ``build_capacity`` / ``probe_capacity`` override the tight per-executor
+    input capacities."""
+    fn, args, (brecv, precv, out_cap) = prepare_hash_join(
+        devices, build_keys, build_vals, probe_keys, probe_vals, impl=impl, build_capacity=build_capacity,
+        probe_capacity=probe_capacity, join_type=join_type, num_executors=num_executors,
+    )
+    outs = fn(*args)
     rt = outs[4]
     if not ((rt[:, 0] <= brecv).all() and (rt[:, 1] <= precv).all()):
         raise RuntimeError(
