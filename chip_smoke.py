@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``sparkucx_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), then runs nineteen phases; any
+process per source, all started together), then runs twenty phases; any
 failure propagates and the exit code is non-zero:
 
 1. environment: card, power limit, versions, kernel build time;
@@ -113,7 +113,17 @@ failure propagates and the exit code is non-zero:
     edges over 4,096 vertices against a scipy reachability oracle, through
     ``run_transitive_closure`` (K1 counted: n for the prep, 2n a round),
     then every round timed, the last profiled and its exchanges' K1 held
-    against its plain version.
+    against its plain version;
+20. the benchmark CLI (``python -m sparkucx_tpu_torch.perf.benchmark``): its
+    eleven main-path modes (superstep, gather, write, pipeline, skew,
+    adaptive, sort, columnar, groupby, join, combine) through ``main`` at
+    the arguments of ``CLI_MODES``, each at the scale of a PERF.md section
+    4 configuration, every kernel's launch count set to 0 just before each
+    run and read just after against ``mode_launches``; then each mode again
+    at one iteration of one call with every call of K1, K2, K3, K4 and K6
+    held bit for bit against its plain version on the same inputs; one call
+    of the GROUP BY, join and combine modes timed and profiled on its own
+    inputs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -125,6 +135,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2613,6 +2624,294 @@ def spark_tc(device, seed: int, vertices: int = TC_SCALED_VERTICES) -> dict:
     return out
 
 
+# -- phase 20: the benchmark CLI's modes -------------------------------------------
+
+#: phase 20: the arguments of each mode of ``python -m sparkucx_tpu_torch.perf.benchmark``
+#: and the configuration of PERF.md section 4 whose scale it runs at
+CLI_MODES = (
+    ("superstep --executors 4 -s 256m -o 4 -i 3", "groupby_big, 4 GiB of 512-byte rows a superstep"),
+    ("gather -n 200 -s 25m -o 4 -i 3", "groupby_big, the n=1 exchange (5 GiB packed)"),
+    ("write -n 200 -s 25m -i 3 --impl host,device", "groupby_big, one map task"),
+    ("pipeline --executors 4 -n 6 -s 64m --depths 1,2,3 -i 2", "groupby_big, spilled rounds"),
+    ("skew --executors 4 -s 128m --zipf-alpha 1.2 -i 3", "groupby_big, a hot reducer"),
+    ("adaptive --executors 8 -s 4m -i 2", "the JAX mode's own matrix"),
+    ("sort -n 100000000 --sort-impl radix -i 3", "terasort_10gb"),
+    ("sort -n 100000000 --executors 4 -i 3", "terasort_10gb, four executors"),
+    ("sort -n 4000000 --executors 2 --batches 4 -i 1", "terasort_10gb, run_external_sort, cut"),
+    ("columnar --executors 4 -n 25000000 -s 100 -i 3", "terasort_10gb, 2.5 GB of 100-byte rows"),
+    ("groupby --executors 4 -n 50000000 --keys 5000 -i 3", "GroupByTest, numKVPairs 5000"),
+    ("groupby --executors 4 -n 50000000 --keys 5000 -i 3 --partial", "GroupByTest, partial aggregation"),
+    ("join --executors 4 -n 59986052 --build-rows 15000000 -i 3", "tpch_q18_sf10 scale, lineitem x orders"),
+    ("join --executors 4 -n 59986052 --build-rows 15000000 -i 3 --join-type full_outer", "tpch_q18_sf10 scale"),
+    ("combine --executors 4 -s 256m --keys 8 -i 3", "tpch_q1_sf10, G = 8 (shared tier)"),
+    ("combine --executors 4 -s 256m --keys 8388608 -i 3", "tpch_q18_stage1_sf1, G = 2**23 (global tier)"),
+)
+
+
+def mode_launches(args, lines) -> dict:
+    """The kernel launches one run of a mode of the benchmark CLI must count,
+    from its parsed arguments and the lines it printed: kernel -> an exact
+    count, or (count, "at least") where the count depends on the data."""
+    n, reps = args.executors, 1 + args.outstanding * args.iterations
+    mode = args.mode
+    if mode == "superstep":
+        return {"K1": n * reps}
+    if mode == "gather":
+        return {"K1": reps}
+    if mode == "write":
+        device_seals = 1 + args.iterations if "device" in args.impl.split(",") or args.impl == "auto" else 0
+        return {"K2": device_seals}
+    if mode == "pipeline":
+        return {"K1": n * args.num_blocks * len(args.depths.split(",")) * (1 + args.iterations)}
+    if mode == "skew":
+        # "... quota slot Q rows, S sub-rounds": the quota plan's shots
+        subrounds = int(next(re.search(r"(\d+) sub-rounds", ln) for ln in lines if "sub-rounds" in ln).group(1))
+        return {"K1": n * (1 + args.iterations) * (1 + subrounds)}
+    if mode == "adaptive":
+        return {"K1": (1, "at least")}
+    if mode == "sort":
+        if args.batches > 1:
+            return {"K1": (n * args.batches * (1 + args.iterations), "at least")}
+        if args.sort_impl == "radix":
+            return {"K6": reps, "K1": 0}
+        return {"K1": n * reps}
+    if mode in ("columnar", "groupby"):
+        return {"K1": n * reps}
+    if mode == "join":
+        return {"K1": 2 * n * reps}
+    if mode == "combine":
+        calls = 1 + 4 * args.iterations  # one off the clock, four an iteration
+        return {"K1": n * calls, "K3": calls, "K4": calls}
+    raise ValueError(f"no launch counts for mode {mode!r}")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8)
+
+
+def _hold_gather(args, got, before) -> bool:
+    from sparkucx_tpu_torch.ops.block_kernels import block_gather_ref
+
+    s, c, o, src, out_rows = args[:5]
+    filled = min(int(c.sum()), out_rows)  # a packed plan fills a prefix; the rest is unspecified
+    return torch.equal(_bits(got[:filled]), _bits(block_gather_ref(s, c, o, src, out_rows)[:filled]))
+
+
+def _hold_scatter(args, got, before) -> bool:
+    from sparkucx_tpu_torch.ops.block_kernels import block_scatter_ref
+
+    return torch.equal(_bits(got), _bits(block_scatter_ref(*args[:4], before)))
+
+
+def _hold_ring(args, got, before) -> bool:
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid_ref
+
+    return torch.equal(_bits(got), _bits(ring_exchange_grid_ref(*args)))
+
+
+def _hold_combine(args, got, before) -> bool:
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid_ref
+
+    return all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got, ring_combine_grid_ref(*args)))
+
+
+def _hold_radix(args, got, before) -> bool:
+    from sparkucx_tpu_torch.ops.radix import radix_sort_rows_ref
+
+    return torch.equal(_bits(got), _bits(radix_sort_rows_ref(args[0])))
+
+
+#: phase 20: each kernel's wrapper and the check of one of its calls against its plain version
+HELD = {"K1": ("block_kernels", "block_gather", _hold_gather), "K2": ("block_kernels", "block_scatter", _hold_scatter),
+        "K3": ("ring_kernels", "ring_exchange_grid", _hold_ring), "K4": ("ring_kernels", "ring_combine_grid", _hold_combine),
+        "K6": ("radix", "radix_sort_rows", _hold_radix)}
+
+
+class _Held:
+    """One kernel's wrapper during a held run (:func:`holding`)."""
+
+    def __init__(self, label: str, name: str, real, check, keep_last: bool):
+        self.label, self.name, self.real, self.check, self.keep_last = label, name, real, check, keep_last
+        self.launches = self.held = 0  # the kernel's own ``launches += 1`` lands here meanwhile
+        self.last = None
+
+    def __call__(self, *args, **kwargs):
+        before = args[4].clone() if self.label == "K2" else None  # K2 scatters into dst in place
+        got = self.real(*args, **kwargs)
+        assert self.check(args, got, before), (
+            f"{self.label} ({self.name}) differs from its plain version on call {self.held}")
+        del before
+        self.held += 1
+        if self.keep_last:
+            self.last = (args, kwargs)
+        return got
+
+
+def holding(kernels: dict, keep_last: bool = False) -> tuple:
+    """Hold every call of each kernel against its plain version: ``kernels``
+    maps a label to ``(name, function, check)``; the function is replaced, in every
+    loaded ``sparkucx_tpu_torch`` module that holds it, by a wrapper that calls
+    it, then ``check(args, result, dst before the call (K2) or None)`` on the
+    same inputs, and fails on a difference.  The kernels' own launch counts
+    stay as they were meanwhile.  Returns ``(wrappers, restore)``;
+    ``wrapper.held`` counts its calls; with ``keep_last``, ``wrapper.last``
+    keeps the last one's arguments (and so its tensors)."""
+    patched, wrappers = [], {}
+    for label, (name, real, check) in kernels.items():
+        wrappers[label] = wrapper = _Held(label, name, real, check, keep_last)
+        for key, mod in list(sys.modules.items()):
+            if key.startswith("sparkucx_tpu_torch") and getattr(mod, name, None) is real:
+                setattr(mod, name, wrapper)
+                patched.append((mod, name, real))
+
+    def restore():
+        for mod, name, real in patched:
+            setattr(mod, name, real)
+
+    return wrappers, restore
+
+
+def capturing(module, name: str, box: dict):
+    """Replace the builder ``module.name`` with one whose built function keeps
+    itself and its last call's arguments in ``box["call"]``; returns a
+    function restoring the builder."""
+    import functools
+
+    real = getattr(module, name)
+
+    def build(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        @functools.wraps(fn)
+        def call(*a):
+            box["call"] = (fn, a)
+            return fn(*a)
+
+        return call
+
+    setattr(module, name, build)
+    return lambda: setattr(module, name, real)
+
+
+#: phase 20: the modes whose one call is profiled after their held run -> the
+#: module and builder of the function a timed iteration calls
+PROFILED = {
+    "groupby": ("relational", "build_grouped_aggregate"),
+    "join": ("relational", "build_hash_join"),
+    "combine": ("ici_exchange", "build_combine_exchange"),
+}
+
+
+def profile_mode(text: str, fn, call_args, kernels: dict) -> dict:
+    """One call of a mode's built function on its own inputs: its time on the
+    host clock (median of 3, ending synchronized); between CUDA events with
+    the calls queued behind a sleeping kernel (:func:`device_ms`: no host
+    latency shows unless the call waits on the device); the device's busy
+    share of one profiled call; and the last call of each kernel it launched
+    (``kernels``: label -> (function, (args, kwargs))) alone on the device."""
+    wall_ms = []
+    fn(*call_args)
+    for _ in range(3):
+        _, secs = wall(lambda: fn(*call_args))
+        wall_ms.append(secs * 1e3)
+    queued = device_ms(lambda: fn(*call_args), reps=3)
+    busy = profile_call(text, lambda: fn(*call_args), top=8)
+    alone = {label: device_ms(lambda: real(*a, **kw), reps=5) for label, (real, (a, kw)) in kernels.items()}
+    ms = statistics.median(wall_ms)
+    log(f"  {text}: one call {ms:.3f} ms on the host clock (median of 3), {queued:.3f} ms queued behind a "
+        f"sleeping kernel; busy {'not traced' if busy is None else f'{busy:.1%}'} in the profiled call; the last "
+        f"call alone on the device: {', '.join(f'{k} {v:.4f} ms' for k, v in alone.items())}")
+    return {"wall_ms": ms, "queued_ms": queued, "busy": busy, "kernel_alone_ms": alone}
+
+
+def cli_modes(device, table=CLI_MODES) -> dict:
+    """Phase 20: every ported mode of the benchmark CLI through ``main``, on
+    the card.  Each mode runs twice.  The timed run: the kernels' launch
+    counts set to 0 just before and read just after, each count of
+    :func:`mode_launches` required, the printed lines logged.  The held run,
+    at the same arguments with one iteration of one call: every call of K1,
+    K2, K3, K4 and K6 checked bit for bit against its plain version on the
+    same inputs (:func:`holding`), as many calls as the counts require;
+    for the modes of ``PROFILED``, one call of the built function then timed
+    and profiled on its own inputs.  A mode fails if ``main`` does not
+    return 0: each mode asserts its own results (its outputs bit-identical
+    across plans, the rows it packed, sorted, grouped or joined)."""
+    import contextlib
+    import importlib
+    import io
+
+    from sparkucx_tpu_torch.perf import benchmark
+
+    def module(name):
+        return importlib.import_module(f"sparkucx_tpu_torch.ops.{name}")
+
+    kernels = {label: (name, getattr(module(mod), name), check) for label, (mod, name, check) in HELD.items()}
+
+    def run(argv):
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = benchmark.main(argv)
+        assert rc == 0, f"{' '.join(argv)}: exit {rc}"
+        return printed.getvalue().splitlines()
+
+    def require(text, want, got):
+        for name, count in want.items():
+            if isinstance(count, tuple):
+                assert got[name] >= count[0], f"{text}: {name} {got[name]} times, want at least {count[0]}"
+            else:
+                assert got[name] == count, f"{text}: {name} {got[name]} times, want {count}"
+
+    out = {}
+    total = time.perf_counter()
+    for text, config in table:
+        argv = text.split() + ["--device", device.type]
+        args = benchmark._parse_args(argv)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _, kernel, _ in kernels.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        lines = run(argv)
+        secs = time.perf_counter() - t0
+        got = {label: kernel.launches for label, (_, kernel, _) in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  {text}  [{config}]")
+        for line in lines:
+            log(f"    {line}")
+        require(text, mode_launches(args, lines), got)
+        launched = {k: v for k, v in got.items() if v}
+        log(f"    launches {launched}; {secs:.2f} s with set-up; peak device memory {peak:.2f} GB")
+
+        # the held run: same shapes, every kernel call against its plain version
+        held_argv = argv + ["-i", "1", "-o", "1"]
+        box = {}
+        unhook = capturing(module(PROFILED[args.mode][0]), PROFILED[args.mode][1], box) if args.mode in PROFILED else None
+        torch.cuda.empty_cache()
+        wrappers, restore = holding(kernels, keep_last=unhook is not None)
+        t0 = time.perf_counter()
+        try:
+            held_lines = run(held_argv)
+        finally:
+            restore()
+            if unhook is not None:
+                unhook()
+        held = {name: w.held for name, w in wrappers.items()}
+        require(f"{text} (held)", mode_launches(benchmark._parse_args(held_argv), held_lines), held)
+        log(f"    held: every kernel call of a run at -i 1 -o 1 equal to its plain version "
+            f"({', '.join(f'{k} x{v}' for k, v in held.items() if v)}; {time.perf_counter() - t0:.2f} s)")
+        out[text] = {"config": config, "launches": launched, "held": {k: v for k, v in held.items() if v},
+                     "seconds": secs, "peak_gb": peak, "lines": lines}
+        if "call" in box:
+            fn, call_args = box.pop("call")
+            last = {k: (kernels[k][1], w.last) for k, w in wrappers.items() if w.held}
+            out[text]["profile"] = profile_mode(text, fn, call_args, last)
+            del fn, call_args, last
+        del wrappers
+    log(f"  phase 20 in {time.perf_counter() - total:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=SEED, help="seed of the TPC-H data and the graphs (phases 11-12, 18-19)")
@@ -2718,6 +3017,9 @@ def main() -> int:
     log("phase 19: SparkTC, four executors sharing the card (run_transitive_closure)")
     tc = spark_tc(device, args.seed + 3)
 
+    log("phase 20: the benchmark CLI's modes on the card (python -m sparkucx_tpu_torch.perf.benchmark)")
+    modes = cli_modes(device)
+
     log(json.dumps({"main_path": {k: v for k, v in stats.items() if k != "launches"}}))
     sort_stats["k6"] = {k: table[2][k] for k in ("steps_ms", "design_bytes_ms", "first_design_bound_ms")}
     log(json.dumps({"terasort": sort_stats}))
@@ -2726,6 +3028,7 @@ def main() -> int:
     log(json.dumps({"fused_send_side": fused, "chunked_plan": chunked}))
     log(json.dumps({"ici": {str(n): p for n, p in ici["per_n"].items()}, "ici_held": ici["held"]}))
     log(json.dumps({"tpch_q18_sf10": q18, "sparktc": tc}))
+    log(json.dumps({"benchmark_modes": {k: {f: v for f, v in m.items() if f != "lines"} for k, m in modes.items()}}))
     log(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -30,7 +30,7 @@ from sparkucx_tpu_torch.utils.devices import resolve_devices
 
 _CROSS_DEVICE = (
     "executors on different devices need the NCCL exchange, which is not ported yet "
-    "(ROADMAP queue A item 2, NCCL executors across devices)"
+    "(ROADMAP queue A item 4, executors in separate processes)"
 )
 
 

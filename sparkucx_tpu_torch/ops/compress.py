@@ -1,8 +1,15 @@
-"""Lossy block quantization of float exchange payloads (tier b).
+"""Payload reduction for the data plane: lossless page codecs (tier a) and
+lossy block quantization of float exchange payloads (tier b).
 
-Port of the quantize half of ``sparkucx_tpu/ops/compress.py``
-(``QuantizeSpec``, ``_block_scales``, ``quantize_rows``, ``dequantize_rows``)
-as torch ops.  Aggregate-tolerant float payloads (the GROUP BY's partial
+Port of ``sparkucx_tpu/ops/compress.py``.
+
+**Tier (a)** (``CompressSpec``, ``encode_chunk``) is the wire compression
+policy, host code over the page codecs of ``utils/pagecodec.py``: which codec,
+and the min-page gate under which a page ships raw.  Lossless always; the
+encoded bytes equal the JAX package's.
+
+**Tier (b)** (``QuantizeSpec``, ``_block_scales``, ``quantize_rows``,
+``dequantize_rows``) runs as torch ops.  Aggregate-tolerant float payloads (the GROUP BY's partial
 rows, ops/relational.py) travel as int8 with one float32 scale per
 ``block_size`` values.  ``int8`` uses a linear scale (|err| <= amax/254),
 ``blockfloat`` a power-of-two shared exponent (|err| <= amax/127, scales
@@ -13,18 +20,75 @@ width ``w`` and block size ``B`` (a multiple of 4), ``wq = ceil(w/B)*B``
 padded values pack 4 int8 per int32 word (byte k of word i is value
 ``4*i + k``, little end first) — ``wq//4`` words — followed by ``nb = wq//B``
 per-block float32 scales whose bits are the int32 words.
-
-The lossless page codecs of tier (a) (``CompressSpec``, ``encode_chunk``) need
-``utils/pagecodec.py`` and are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
+from sparkucx_tpu_torch.utils.pagecodec import CODEC_RAW, WIRE_CODECS, encode_page
+
 QUANTIZE_MODES = ("off", "int8", "blockfloat")
+
+
+# ----------------------------------------------------------------------------
+# Tier (a): lossless wire compression policy
+# ----------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CompressSpec:
+    """Static description of the wire compression policy (tier a).
+
+    ``codec``: 'off' | 'dict' | 'rle' | 'delta' (conf ``compress.codec``).
+    ``min_chunk_bytes``: pages smaller than this ship raw without attempting
+    an encode — below a few KiB the header + call overhead beats any shrink.
+    """
+
+    codec: str = "off"
+    min_chunk_bytes: int = 4096
+
+    @classmethod
+    def from_conf(cls, conf) -> "CompressSpec":
+        spec = cls(codec=conf.wire_compress_codec, min_chunk_bytes=conf.compress_min_chunk_bytes)
+        spec.validate()
+        return spec
+
+    def validate(self) -> None:
+        if self.codec != "off" and self.codec not in WIRE_CODECS:
+            raise ValueError(f"unknown compress codec {self.codec!r}")
+        if self.min_chunk_bytes < 0:
+            raise ValueError("min_chunk_bytes must be >= 0")
+
+    @property
+    def enabled(self) -> bool:
+        return self.codec != "off"
+
+    @property
+    def codec_id(self) -> int:
+        return WIRE_CODECS[self.codec] if self.enabled else CODEC_RAW
+
+
+def encode_chunk(spec: CompressSpec, data) -> Tuple[int, Optional[bytes]]:
+    """Encode one wire page under ``spec``.
+
+    Returns ``(codec_id, encoded)``; ``encoded is None`` means "ship the raw
+    slice" (codec off, page under the min-size gate, or encoding didn't
+    shrink it) and the returned codec id is :data:`CODEC_RAW`."""
+    if not spec.enabled or len(data) < spec.min_chunk_bytes:
+        return CODEC_RAW, None
+    encoded = encode_page(spec.codec_id, data)
+    if encoded is None:
+        return CODEC_RAW, None
+    return spec.codec_id, encoded
+
+
+# ----------------------------------------------------------------------------
+# Tier (b): lossy block quantization
+# ----------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)

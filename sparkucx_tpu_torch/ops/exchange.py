@@ -137,7 +137,7 @@ def build_exchange(devices: Sequence, spec: ExchangeSpec):
     if not same_device(devices):
         raise NotImplementedError(
             "executors on different devices need the NCCL exchange, which is not "
-            "ported yet (ROADMAP queue A, multi-device NCCL executors)"
+            "ported yet (ROADMAP queue A item 4, executors in separate processes)"
         )
 
     def exchange(data: torch.Tensor, size_matrix) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -155,12 +155,12 @@ def build_exchange(devices: Sequence, spec: ExchangeSpec):
             raise ValueError(
                 f"receiver gets {int(received.max())} rows > recv_rows={spec.recv_rows}"
             )
-        shards: List[torch.Tensor] = []
+        # each receiver's rows land in place in the one receive buffer
+        recv = torch.empty((n * spec.recv_rows, spec.lane), dtype=data.dtype, device=data.device)
         for j in range(n):
             starts, counts, outs, _ = receive_plan(sizes, j, spec.send_rows, spec.slot_rows)
             s, c, o = plan_tensors(starts, counts, outs, data.device)
-            shards.append(block_gather(s, c, o, data, spec.recv_rows))
-        recv = shards[0] if n == 1 else torch.cat(shards)
+            block_gather(s, c, o, data, spec.recv_rows, out=recv[j * spec.recv_rows : (j + 1) * spec.recv_rows])
         return recv, torch.from_numpy(np.ascontiguousarray(sizes.T))
 
     exchange.spec = spec

@@ -23,7 +23,7 @@ pure Python) and the flat builders, for executors that share one device.
 
 Executors that share one device ride one ring whose hops never leave the
 device, so the fabric kind is always ``'ici'``.  Executors on different
-devices need NCCL (ROADMAP queue A item 2) and raise
+devices need NCCL (ROADMAP queue A item 4) and raise
 ``NotImplementedError``.  The hierarchical and quantized builders are not
 ported yet.
 

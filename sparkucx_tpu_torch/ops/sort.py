@@ -91,7 +91,7 @@ class SortSpec:
         if self.impl == "ragged":
             raise NotImplementedError(
                 "impl='ragged' sorts across devices through the NCCL exchange, which is not "
-                "ported yet (ROADMAP queue A item 2)"
+                "ported yet (ROADMAP queue A item 4, executors in separate processes)"
             )
         if self.impl not in ("shared", "single", "radix"):
             raise ValueError(f"unknown impl {self.impl!r}")
@@ -277,7 +277,7 @@ def build_distributed_sort(devices: Optional[Sequence], spec: SortSpec):
     if not same_device(devices):
         raise NotImplementedError(
             "executors on different devices need the NCCL exchange, which is not ported "
-            "yet (ROADMAP queue A item 2)"
+            "yet (ROADMAP queue A item 4, executors in separate processes)"
         )
     n, cap, body = spec.num_executors, spec.capacity, _BODIES[spec.impl]
     device = devices[0]

@@ -92,13 +92,12 @@ def build_plan_exchange(
         )
     if quantize is not None:
         raise NotImplementedError(
-            "the quantized exchange is not ported yet (ROADMAP queue A, the rest "
-            "of items 7 and 8: the hierarchical and quantized builders)"
+            "the quantized exchange is not ported yet (ROADMAP queue A item 3)"
         )
     if num_slices > 1:
         raise NotImplementedError(
-            "the two-phase multi-slice exchange is not ported yet (ROADMAP queue A, "
-            "the rest of items 7 and 8: ops/hierarchy.py, after item 2)"
+            "the two-phase multi-slice exchange is not ported yet (ROADMAP queue A "
+            "item 4: ops/hierarchy.py)"
         )
     if impl == "pallas":
         return build_ici_exchange(devices, spec, chunks_per_dest=DEFAULT_CHUNKS_PER_DEST)

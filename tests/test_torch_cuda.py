@@ -830,3 +830,65 @@ def test_take_rows_of_16_bytes_moves_bits(cuda, dtype):
     got = take_rows(rows, idx)
     assert got.dtype == dtype and got.shape == (5000, lanes)
     assert torch.equal(got.view(torch.int32), rows.index_select(0, idx).view(torch.int32))
+
+
+# -- the benchmark CLI's modes (perf/benchmark.py), with phase 20's counts ------------
+
+
+def _chip_smoke():
+    """chip_smoke.py at the root of the repository: the launch counts of
+    phase 20 (``mode_launches``) stand there alone."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("argv", [
+    "superstep -s 8k -i 1 -o 2 --executors 4",
+    "gather -n 4 -s 4k -i 2 -o 3",
+    "write -n 4 -s 4k -i 2 --impl host,device",
+    "pipeline --executors 4 -n 3 -s 64k --depths 1,2 -i 1",
+    "skew --executors 4 -s 150k -i 2",
+    "adaptive --executors 4 -s 256k -i 1",
+    "sort -n 3000 -i 1 -o 2 --sort-impl radix",
+    "sort -n 3000 -i 1 -o 2 --executors 4",
+    "sort -n 3000 -i 1 --executors 2 --batches 3",
+    "columnar -n 3000 -s 100 -i 1 -o 2 --executors 4",
+    "groupby -n 3000 -i 1 -o 2 --executors 4 --keys 50",
+    "groupby -n 3000 -i 1 -o 2 --executors 4 --keys 50 --partial",
+    "join -n 3000 -i 1 -o 2 --executors 4",
+    "join -n 3000 -i 1 -o 2 --executors 4 --join-type full_outer",
+    "combine --executors 4 -s 8k --keys 8 -i 1",
+    "combine --executors 4 -s 8k --keys 40000 -i 1",
+])
+def test_benchmark_mode_launch_counts(cuda, capsys, argv):
+    """Each mode at a tiny size on the card, its kernels launched as often as
+    phase 20 of chip_smoke.py requires (``mode_launches``)."""
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_combine_grid, ring_exchange_grid
+    from sparkucx_tpu_torch.perf import benchmark
+
+    counters = {"K1": block_gather, "K2": block_scatter, "K3": ring_exchange_grid, "K4": ring_combine_grid,
+                "K6": radix_sort_rows}
+    before = {k: c.launches for k, c in counters.items()}
+    assert benchmark.main(argv.split()) == 0
+    got = {k: c.launches - before[k] for k, c in counters.items()}
+    lines = capsys.readouterr().out.splitlines()
+    want = _chip_smoke().mode_launches(benchmark._parse_args(argv.split()), lines)
+    assert want
+    for k, count in want.items():
+        if isinstance(count, tuple):
+            assert got[k] >= count[0], k
+        else:
+            assert got[k] == count, k
+    assert any("GB/s" in ln or "rows/s" in ln for ln in lines)
+
+
+def test_benchmark_cpu_lowerings_refused_on_the_card(cuda):
+    from sparkucx_tpu_torch.perf import benchmark
+
+    with pytest.raises(ValueError, match="on the card"):
+        benchmark.measure_gather(2, 4096, 1, 1, impl="xla")

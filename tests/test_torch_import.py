@@ -124,6 +124,7 @@ _PLAN_ENGINE_MODULES = (
     "sparkucx_tpu_torch.transport.executor",
     "sparkucx_tpu_torch.utils.stats",
     "sparkucx_tpu_torch.perf.benchmark",
+    "sparkucx_tpu_torch.utils.pagecodec",
 )
 
 
@@ -146,3 +147,30 @@ def test_fused_send_side_and_benchmark_default_to_cuda(monkeypatch):
         build_fused_ici_exchange(None, ExchangeSpec(2, 8, 8, 4), 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         measure_ici((2,), 8, 4)
+
+
+_BENCHMARK_RUN = textwrap.dedent(
+    """
+    import sys
+    from sparkucx_tpu_torch.perf.benchmark import main
+    for argv in (
+        "superstep -s 8k -i 1 -o 1 --executors 2", "gather -n 3 -s 4k -i 1 -o 1", "write -n 2 -s 4k -i 1",
+        "pipeline --executors 2 -n 2 -s 8k --depths 1,2 -i 1", "skew --executors 2 -s 8k -i 1",
+        "adaptive --executors 2 -s 4k -i 1", "sort -n 256 -i 1 -o 1 --executors 2",
+        "sort -n 256 -i 1 --executors 2 --batches 2", "columnar -n 256 -s 16 -i 1 -o 1 --executors 2",
+        "groupby -n 256 -i 1 -o 1 --executors 2 --keys 8 --partial", "join -n 256 -i 1 -o 1 --executors 2",
+        "combine --executors 2 -s 2k --keys 4 -i 1",
+    ):
+        assert main(argv.split() + ["--device", "cpu"]) == 0, argv
+    print("LOADED", sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "sparkucx_tpu")))
+    """
+)
+
+
+def test_benchmark_modes_run_without_jax():
+    """Every ported benchmark mode, run end to end on the CPU, loads neither
+    JAX nor the JAX package (their measurement cores import lazily)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BENCHMARK_RUN], capture_output=True, text=True, timeout=300, check=True
+    )
+    assert "LOADED []" in out.stdout, out.stdout + out.stderr
