@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``sparkucx_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), then runs twenty phases; any
+process per source, all started together), then runs twenty-two phases; any
 failure propagates and the exit code is non-zero:
 
 1. environment: card, power limit, versions, kernel build time;
@@ -123,7 +123,27 @@ failure propagates and the exit code is non-zero:
     at one iteration of one call with every call of K1, K2, K3, K4 and K6
     held bit for bit against its plain version on the same inputs; one call
     of the GROUP BY, join and combine modes timed and profiled on its own
-    inputs.
+    inputs;
+21. the quantized exchange (ops/ici_exchange.py) on four executors sharing
+    the card, ``int8`` and ``blockfloat`` at block 128: 4 x 4 x 2**19 rows
+    of 512-byte float32 rows (4 GiB) through ``build_quantized_exchange``
+    (quantize, K3 on the 132-byte int32 payload, K1 a receiver,
+    dequantize; K3 counted once and K1 four times) within ``error_bound``
+    of the stock float32 exchange, ``quantize_rows`` on the card bit-equal
+    to the CPU on a 1,048,576-row sample, every K3 and K1 call held bit for
+    bit against its plain version; quantize, K3, K1, dequantize, the route
+    and the float32 stock and K3 routes timed with their bounds and peak
+    memory, one profile; then ``build_quantized_fused_exchange`` on phase
+    13's plan geometry with float payloads (K2 four times, K3 once, K1 four
+    times, K5 never) bit-equal to ``build_quantized_exchange`` on the
+    staging K2 filled, every K2, K3 and K1 call held; then
+    ``measure_quantized_ici(4, 2**19, 128)``;
+22. the six walkthroughs of ``sparkucx_tpu_torch/examples`` through their
+    ``main`` on the card, each checking its own oracle, with their kernels'
+    launch counts; then phase 4's host route through the ShuffleManager SPI
+    at 100 mappers x 100 reducers x 1,000 records of 1,000 bytes, grouped
+    by key under a 256 KiB ``reduceMemoryBudget``: every reducer's groups
+    equal a dict oracle and every reducer spilled.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -448,23 +468,30 @@ def main_path(device, mappers=200, reducers=200, kv_pairs=1000, value_bytes=2500
 # -- phase 4 ---------------------------------------------------------------
 
 
-def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000, **conf_kw):
-    """GroupByTest through the ShuffleManager SPI against a dict oracle;
-    ``conf_kw`` sets the receive mode and the plan (phase 4: ``array``, one
-    shot; phase 16: ``memmap``, chunked).  Returns the manager's cluster
-    stats report."""
+def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000, seed=SEED + 1,
+               keyspace=2**31 - 1, grouped=False, **conf_kw) -> dict:
+    """GroupByTest through the ShuffleManager SPI against a dict oracle, its
+    keys drawn from ``keyspace``; ``conf_kw`` sets the receive mode, the plan
+    and the reduce side's budget (phase 4: ``array``, one shot; phase 16:
+    ``memmap``, chunked; phase 22: a ``reduce_memory_budget`` that makes
+    every reducer spill).  Each reducer reads its records as written or,
+    with ``grouped``, its values grouped by key (``get_reader(aggregator=...,
+    merge_combiners=...)``).  The exchange and the reads each run with every
+    kernel call held against its plain version (:func:`held_run`).  Returns
+    the manager's cluster stats report, the staging rounds, the launches of
+    the exchange and of the reads, and each reducer's spills."""
     from sparkucx_tpu_torch.config import TpuShuffleConf
     from sparkucx_tpu_torch.shuffle.manager import TpuShuffleManager
     from sparkucx_tpu_torch.utils.codec import encode_records
 
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     oracle = {r: [] for r in range(reducers)}
     t0 = time.perf_counter()
     conf = TpuShuffleConf(**{"host_recv_mode": "array", **conf_kw})
     with TpuShuffleManager(conf, devices=[device]) as mgr:
         mgr.register_shuffle(1, mappers, reducers)
         for m in range(mappers):
-            keys = rng.integers(0, 2**31 - 1, size=kv_pairs)
+            keys = rng.integers(0, keyspace, size=kv_pairs)
             values = rng.integers(0, 256, size=(kv_pairs, value_bytes), dtype=np.uint8)
             parts = {r: [] for r in range(reducers)}
             for k, v in zip(keys.tolist(), values):
@@ -477,17 +504,45 @@ def host_route(device, mappers=100, reducers=100, kv_pairs=100, value_bytes=1000
                 stream.close()
                 oracle[r].extend(parts[r])
             writer.commit_all_partitions()
-        mgr.run_exchange(1)
-        records = 0
-        for r in range(reducers):
-            got = sorted(mgr.get_reader(1, r, r + 1).read())
-            assert got == sorted(oracle[r]), f"reducer {r}: records differ from the oracle"
-            records += len(got)
+        written = time.perf_counter() - t0
+        _, exchange_s, exchange = held_run(lambda: mgr.run_exchange(1))
+        rounds = len(mgr.cluster.meta(1).recv_sizes)
+
+        def read_all():
+            spills = []
+            for r in range(reducers):
+                if grouped:
+                    reader = mgr.get_reader(1, r, r + 1, aggregator=_collect, merge_combiners=_merge_lists)
+                    got = {k: sorted(v if isinstance(v, list) else [v]) for k, v in reader.read()}
+                    want = {}
+                    for k, v in oracle[r]:
+                        want.setdefault(k, []).append(v)
+                    assert got == {k: sorted(v) for k, v in want.items()}, f"reducer {r}: groups differ from the oracle"
+                else:
+                    reader = mgr.get_reader(1, r, r + 1)
+                    assert sorted(reader.read()) == sorted(oracle[r]), f"reducer {r}: records differ from the oracle"
+                assert reader.metrics.records_read == len(oracle[r]), f"reducer {r}: records_read"
+                spills.append(reader.metrics.spills)
+            return spills
+
+        spills, read_s, reads = held_run(read_all)
         report = mgr.cluster.stats.report()
-    assert records == mappers * kv_pairs
-    log(f"  GroupByTest {mappers} x {reducers} ({conf.host_recv_mode}, slot_quota_rows "
-        f"{conf.slot_quota_rows}): {records} records read back equal ({time.perf_counter() - t0:.2f} s)")
-    return report
+    log(f"  GroupByTest {mappers} x {reducers}, {kv_pairs} records of {value_bytes} B a mapper "
+        f"({mappers * kv_pairs * value_bytes / 1e6:.0f} MB; {conf.host_recv_mode}, slot_quota_rows "
+        f"{conf.slot_quota_rows}, reduceMemoryBudget {conf.reduce_memory_budget} B): every reducer's "
+        f"{'groups' if grouped else 'records'} equal the oracle; write {written:.2f} s, run_exchange {exchange_s:.2f} s "
+        f"({rounds} staging rounds, launches {exchange}, every call held), read {read_s:.2f} s (launches {reads}); "
+        f"spills a reducer {min(spills)}-{max(spills)} ({sum(spills)} in all)")
+    return {"report": report, "rounds": rounds, "exchange_launches": exchange, "read_launches": reads,
+            "spills": spills, "write_s": written, "exchange_s": exchange_s, "read_s": read_s}
+
+
+def _collect(acc, v):
+    return (acc if isinstance(acc, list) else [acc]) + [v]
+
+
+def _merge_lists(a, b):
+    return (a if isinstance(a, list) else [a]) + (b if isinstance(b, list) else [b])
 
 
 # -- phase 5 ---------------------------------------------------------------
@@ -2195,7 +2250,7 @@ def chunked_plan(device, keep, n=4, mappers=200, reducers=200) -> dict:
         cluster.remove_shuffle(6)
         del cluster
         torch.cuda.empty_cache()
-    report = host_route(device, host_recv_mode="memmap", slot_quota_rows=8192, pipeline_depth=2)
+    report = host_route(device, host_recv_mode="memmap", slot_quota_rows=8192, pipeline_depth=2)["report"]
     drain = [line for line in report.splitlines() if line.startswith("exchange.pipeline.drain")]
     log(f"  memmap: {drain[0] if drain else report}")
     return out
@@ -2732,16 +2787,19 @@ class _Held:
 
     def __init__(self, label: str, name: str, real, check, keep_last: bool):
         self.label, self.name, self.real, self.check, self.keep_last = label, name, real, check, keep_last
-        self.launches = self.held = 0  # the kernel's own ``launches += 1`` lands here meanwhile
+        # the kernel's own ``launches += 1`` lands here meanwhile, whoever calls it
+        self.launches = self.held = self.held_launches = 0
         self.last = None
 
     def __call__(self, *args, **kwargs):
         before = args[4].clone() if self.label == "K2" else None  # K2 scatters into dst in place
+        launched = self.launches
         got = self.real(*args, **kwargs)
         assert self.check(args, got, before), (
             f"{self.label} ({self.name}) differs from its plain version on call {self.held}")
         del before
         self.held += 1
+        self.held_launches += self.launches - launched
         if self.keep_last:
             self.last = (args, kwargs)
         return got
@@ -2769,6 +2827,35 @@ def holding(kernels: dict, keep_last: bool = False) -> tuple:
             setattr(mod, name, real)
 
     return wrappers, restore
+
+
+def held_kernels(labels=tuple(HELD)) -> dict:
+    """:func:`holding`'s ``kernels`` for the labels of ``HELD``."""
+    import importlib
+
+    return {label: (HELD[label][1], getattr(importlib.import_module(f"sparkucx_tpu_torch.ops.{HELD[label][0]}"),
+                                            HELD[label][1]), HELD[label][2]) for label in labels}
+
+
+def held_run(fn):
+    """``fn()`` with every call of K1, K2, K3, K4 and K6 held against its
+    plain version (:func:`holding`) and every kernel's count set to 0 just
+    before; fails if any of their launches fell outside a held call.  Returns
+    (its result, seconds on the host clock, label -> launches of the run
+    for each kernel launched, K5's included)."""
+    from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_ring_grid
+
+    wrappers, restore = holding(held_kernels())
+    fused_scatter_ring_grid.launches = 0
+    try:
+        out, secs = wall(fn)
+    finally:
+        restore()
+    launches = {label: w.launches for label, w in wrappers.items()}
+    held = {label: w.held_launches for label, w in wrappers.items()}
+    assert held == launches, f"launches in held calls {held} differ from all launches {launches}"
+    launches["K5"] = fused_scatter_ring_grid.launches
+    return out, secs, {k: v for k, v in launches.items() if v}
 
 
 def capturing(module, name: str, box: dict):
@@ -2845,7 +2932,7 @@ def cli_modes(device, table=CLI_MODES) -> dict:
     def module(name):
         return importlib.import_module(f"sparkucx_tpu_torch.ops.{name}")
 
-    kernels = {label: (name, getattr(module(mod), name), check) for label, (mod, name, check) in HELD.items()}
+    kernels = held_kernels()
 
     def run(argv):
         printed = io.StringIO()
@@ -2912,6 +2999,283 @@ def cli_modes(device, table=CLI_MODES) -> dict:
     return out
 
 
+# -- phase 21: the quantized exchange at full width -----------------------------------
+
+QUANT_SLOT = 2**19  #: rows of one (sender, receiver) slot at phase 21: 4 x 4 x 2**19 rows of 512 B = 4 GiB
+
+
+def peak_gb(fn):
+    """(result, GB of device memory ``fn`` holds at its peak above what was
+    allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def quantized_route(label: str, call, want: dict, record: dict):
+    """``call()`` (one call of a quantized builder) under :func:`held_run`,
+    its launches held to ``want`` (label -> count); the calls of the
+    ops/ici_exchange.py wrappers named in ``record`` (name -> box) recorded
+    for their timing.  Returns (its result, the launches)."""
+    from sparkucx_tpu_torch.ops import ici_exchange
+
+    def recorded():
+        restores = [recording(ici_exchange, name, box) for name, box in record.items()]
+        try:
+            return call()
+        finally:
+            for restore in reversed(restores):
+                restore()
+
+    out, secs, launches = held_run(recorded)
+    assert launches == want, f"{label}: launches {launches}, want {want}"
+    log(f"  {label}: first call, every kernel call held against its plain version, {secs * 1e3:.2f} ms wall; "
+        f"launches {launches}")
+    return out, launches
+
+
+def quantized_exchange(device, seed: int, geometry: dict, n: int = 4, slot: int = QUANT_SLOT, reps: int = 3) -> dict:
+    """Phase 21: the quantized exchange (ops/ici_exchange.py) on four
+    executors sharing the card, ``int8`` and ``blockfloat`` at block 128.
+
+    At ``n x n x slot`` rows of 512 bytes (float32, 4 GiB at slot 2**19;
+    receive sizes drawn from ``seed`` as ``measure_quantized_ici`` draws
+    them): ``quantize_rows`` on the card bit-equal to the CPU on a 1,048,576
+    row sample; ``build_quantized_exchange`` with K3 counted once and K1 n
+    times, within ``error_bound`` of the stock float32 exchange with equal
+    receive sizes; every K3 call (132-byte rows) and K1 call held bit for
+    bit against its plain version and timed; quantize, K3, K1, dequantize,
+    the route, the float32 stock route and the float32 K3 route timed in
+    rounds with their bounds and peak memory; one profile.  Then on phase
+    13's plan geometry (``geometry``) with seeded float payloads,
+    ``build_quantized_fused_exchange`` (K2 n, K3 once, K1 n, K5 never) equal
+    bit for bit to ``build_quantized_exchange`` on the staging K2 filled,
+    within bound of the stock exchange, every K2, K3 and K1 call held.
+    Finally ``measure_quantized_ici(n, slot, 128)``.  Returns the readings."""
+    from sparkucx_tpu_torch.ops.block_kernels import block_scatter
+    from sparkucx_tpu_torch.ops.compress import QuantizeSpec, dequantize_rows, quantize_rows
+    from sparkucx_tpu_torch.ops.exchange import ExchangeSpec, build_exchange
+    from sparkucx_tpu_torch.ops.ici_exchange import (
+        build_ici_exchange, build_quantized_exchange, build_quantized_fused_exchange, compact_slots,
+    )
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid
+    from sparkucx_tpu_torch.perf.benchmark import max_err_rows, measure_quantized_ici
+
+    devices = [device] * n
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, slot + 1, size=(n, n)).astype(np.int32)  # sizes[i, j]: rows i sends j
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    send_rows = n * slot
+    spec = ExchangeSpec(n, send_rows, send_rows, LANE)
+    data = torch.randn((n * send_rows, LANE), generator=gen, device=device)
+    data_i32 = data.view(torch.int32)
+    amax = float(data.abs().max())
+    filled = int(sizes.sum())
+    stock = build_exchange(devices, spec)
+    ring32 = build_ici_exchange(devices, spec)
+    (ref_i32, ref_rs), stock_peak = peak_gb(lambda: stock(data_i32, sizes))
+    ref = ref_i32.view(torch.float32)
+    log(f"  {n} executors, {data.shape[0]} rows of {LANE * 4} B ({data.numel() * 4 / 2**30:.2f} GiB float32), "
+        f"slot {slot} rows, {filled} rows received in all")
+    out = {"rows": int(data.shape[0]), "row_bytes": LANE * 4, "received_rows": filled, "modes": {}}
+    for mode in ("int8", "blockfloat"):
+        q = QuantizeSpec(mode=mode, block_size=128)
+        qw = q.quantized_width(LANE)
+        sample = data[: 1 << 20]
+        on_card = quantize_rows(q, sample).cpu()
+        assert torch.equal(on_card, quantize_rows(q, sample.cpu())), (
+            f"quantize_rows ({mode}) on the card differs from the CPU")
+        del on_card
+        log(f"  {mode}: quantize_rows on the card equals the CPU bit for bit on {sample.shape[0]} rows; "
+            f"payload {qw} int32 lanes = {qw * 4} B a row")
+        fn = build_quantized_exchange(devices, spec, q)
+        seen = {"ring_exchange_grid": {}, "block_gather": {}}
+        (recv, rs), launches = quantized_route(
+            f"build_quantized_exchange ({mode})", lambda: fn(data, sizes), {"K1": n, "K3": 1}, seen)
+        assert torch.equal(rs, ref_rs), f"{mode}: receive sizes differ from the stock exchange's"
+        err = max_err_rows(recv, ref, sizes, send_rows)
+        bound = q.error_bound(amax)
+        assert err <= bound + 1e-7, f"{mode}: {err} above the bound {bound}"
+        del recv
+        log(f"  {mode}: within {err:.6g} of the stock float32 exchange (bound {bound:.6g}), receive sizes equal")
+        k3 = check_k3_calls(device, f"the quantized exchange ({mode})", seen["ring_exchange_grid"]["calls"])
+        k1 = check_k1_calls(device, f"the quantized compaction ({mode})", seen["block_gather"]["calls"])
+        del seen
+        torch.cuda.empty_cache()
+
+        # the route split, in rounds, beside the float32 routes at the same shape
+        payload = quantize_rows(q, data)
+        steps, w = fn.schedule.raw_steps(), slot // fn.schedule.chunks
+        grid = ring_exchange_grid(n, slot, w, steps, payload)
+        outq = compact_slots(grid, sizes, slot, send_rows)
+        t = time_rounds({
+            "quantize": lambda: quantize_rows(q, data),
+            "k3": lambda: ring_exchange_grid(n, slot, w, steps, payload),
+            "k1": lambda: compact_slots(grid, sizes, slot, send_rows),
+            "dequantize": lambda: dequantize_rows(q, outq, LANE),
+            "route": lambda: fn(data, sizes),
+            "f32_stock": lambda: stock(data_i32, sizes),
+            "f32_k3_route": lambda: ring32(data_i32, sizes),
+        }, reps)
+        ms = {k: statistics.median(v) for k, v in t.items()}
+        del grid, outq
+        torch.cuda.empty_cache()
+        _, q_peak = peak_gb(lambda: quantize_rows(q, data))
+        _, route_peak = peak_gb(lambda: fn(data, sizes))
+        _, ring_peak = peak_gb(lambda: ring32(data_i32, sizes))
+        fbytes, qbytes = data.numel() * 4, payload.numel() * 4
+        del payload
+        bounds = {
+            "quantize": (fbytes + qbytes) / HBM_BYTES_PER_S * 1e3,
+            "k3": 2 * qbytes / HBM_BYTES_PER_S * 1e3,
+            "k1": 2 * filled * qw * 4 / HBM_BYTES_PER_S * 1e3,
+            "dequantize": (qbytes + fbytes) / HBM_BYTES_PER_S * 1e3,
+            "route": 2 * fbytes / HBM_BYTES_PER_S * 1e3,
+            "f32_stock": (filled * LANE * 4 + fbytes) / HBM_BYTES_PER_S * 1e3,
+            "f32_k3_route": 2 * fbytes / HBM_BYTES_PER_S * 1e3,
+        }
+        log(f"  {mode}, median of {reps} rounds (ms, bound by bytes): " + ", ".join(
+            f"{k} {ms[k]:.4f} ({bounds[k]:.4f})" for k in ms))
+        log(f"  {mode}: peak device memory above the input, quantize {q_peak:.2f} GB, the route {route_peak:.2f} "
+            f"GB; float32 stock {stock_peak:.2f} GB, float32 K3 route {ring_peak:.2f} GB")
+        busy = profile_call(f"build_quantized_exchange ({mode})", lambda: fn(data, sizes), top=8)
+        out["modes"][mode] = {"launches": launches, "max_err": err, "err_bound": bound, "ms": ms,
+                              "by_round": t, "bound_ms": bounds, "k3": k3, "k1": k1,
+                              "peak_gb": {"quantize": q_peak, "route": route_peak, "f32_stock": stock_peak,
+                                          "f32_k3_route": ring_peak}, "busy": busy}
+        del fn
+        torch.cuda.empty_cache()
+    del ref, ref_i32, data, data_i32, stock, ring32
+    torch.cuda.empty_cache()
+
+    # the fused route on phase 13's plan geometry, float payloads made from the seed
+    seal, staging_rows, sizes13 = geometry["seal"], geometry["staging_rows"], geometry["sizes"]
+    nb = max(c.size for _, c, _, _ in seal)
+    p_rows = max(p for _, _, _, p in seal)
+    plan = np.zeros((3, n, nb), np.int32)
+    for i, (s_, c_, o_, p) in enumerate(seal):
+        b = c_.size
+        plan[0, i, :b], plan[1, i, :b], plan[2, i, :b] = s_, c_, o_
+        plan[2, i, b:] = p  # count-0 pads at the packed end
+    starts, counts, outs = (torch.from_numpy(a).to(device) for a in plan)
+    packed = torch.randn((n * p_rows, LANE), generator=gen, device=device)
+    spec13 = ExchangeSpec(n, staging_rows, staging_rows, LANE)
+    size_matrix = np.ascontiguousarray(sizes13.T)  # row i: rows sender i sent each receiver
+    log(f"  fused route on phase 13's plan: {n} x {nb} blocks, {sum(p for *_, p in seal)} packed rows, staging "
+        f"{n * staging_rows} rows of {LANE * 4} B")
+    out["fused"] = {}
+    for mode in ("int8", "blockfloat"):
+        q = QuantizeSpec(mode=mode, block_size=128)
+        ffn = build_quantized_fused_exchange(devices, spec13, q, nb)
+        staging = torch.zeros((n * staging_rows, LANE), dtype=torch.float32, device=device)
+        seen = {"block_scatter": {}, "ring_exchange_grid": {}, "block_gather": {}}
+        (recv_f, rs_f), launches = quantized_route(
+            f"build_quantized_fused_exchange ({mode})",
+            lambda: ffn(starts, counts, outs, packed, staging, size_matrix), {"K1": n, "K2": n, "K3": 1}, seen)
+        assert np.array_equal(rs_f.numpy(), sizes13), f"{mode}: fused receive sizes differ from phase 13's"
+        # staging now holds what K2 placed from the plan: the unfused route on it
+        recv_u, rs_u = build_quantized_exchange(devices, spec13, q)(staging, size_matrix)
+        assert torch.equal(rs_u, rs_f) and torch.equal(recv_u.view(torch.int32), recv_f.view(torch.int32)), (
+            f"{mode}: the fused route differs from build_quantized_exchange on the staging K2 filled")
+        del recv_u
+        sref, srs = build_exchange(devices, spec13)(staging.view(torch.int32), size_matrix)
+        assert torch.equal(srs, rs_f)
+        err = max_err_rows(recv_f, sref.view(torch.float32), size_matrix, staging_rows)
+        bound = q.error_bound(float(packed.abs().max()))
+        assert err <= bound + 1e-7, f"{mode} fused: {err} above the bound {bound}"
+        del recv_f, sref
+        log(f"  {mode} fused: bit-equal to build_quantized_exchange on the staging K2 filled; within {err:.6g} "
+            f"of the stock float32 exchange (bound {bound:.6g})")
+        k3 = check_k3_calls(device, f"the fused quantized route ({mode})", seen["ring_exchange_grid"]["calls"], reps=3)
+        k1 = check_k1_calls(device, f"the fused quantized compaction ({mode})", seen["block_gather"]["calls"], reps=3)
+        s0, c0, o0, src0, dst0 = seen["block_scatter"]["calls"][0]
+        k2_ms = time_ms(lambda: block_scatter(s0, c0, o0, src0, dst0), reps)
+        live = plan[1, 0] > 0
+        idx = torch.from_numpy(np.repeat(plan[0, 0][live].astype(np.int64) - plan[2, 0][live],
+                                         plan[1, 0][live]) + np.arange(int(plan[1, 0].sum()))).to(device)
+        k2_lib = time_ms(lambda: dst0.index_copy_(0, idx, src0[: idx.numel()]), reps)
+        k2_bound = (2 * idx.numel() * LANE * 4 + 12 * nb) / HBM_BYTES_PER_S * 1e3
+        route_ms = time_ms(lambda: ffn(starts, counts, outs, packed, staging, size_matrix), reps)
+        log(f"  {mode} fused: K2 at executor 0 ({int(c0.sum())} rows in {nb} blocks) {k2_ms:.4f} ms, library "
+            f"(index_copy_) {k2_lib:.4f} ms, bound {k2_bound:.4f} ms; the fused route {route_ms:.4f} ms")
+        out["fused"][mode] = {"launches": launches, "max_err": err, "err_bound": bound, "k3": k3, "k1": k1,
+                              "k2_ms": k2_ms, "k2_library_ms": k2_lib, "k2_bound_ms": k2_bound,
+                              "route_ms": route_ms}
+        del seen, s0, c0, o0, src0, dst0, idx, staging, ffn
+        torch.cuda.empty_cache()
+    del starts, counts, outs, packed
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ici = measure_quantized_ici(n, slot, LANE, device=device)
+    log(f"  measure_quantized_ici({n}, {slot}, {LANE}) in {time.perf_counter() - t0:.1f} s: n={ici['n']}, "
+        f"f32 {ici['f32_gbps']:.2f} GB/s; " + "; ".join(
+            f"{m}: {c['gbps']:.2f} GB/s ({c['speedup_vs_f32']:.3f}x), wire_reduction {c['wire_reduction']:.4f}, "
+            f"max_err {c['max_err']:.6g} <= err_bound {c['err_bound']:.6g}" for m, c in ici["modes"].items()))
+    out["measure_quantized_ici"] = ici
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 22: the walkthroughs and the spilling reduce side -------------------------
+
+
+def _matched(pattern: str, lines) -> int:
+    return int(next(m for m in (re.search(pattern, ln) for ln in lines) if m).group(1))
+
+
+#: phase 22: each walkthrough -> the launches its ``main`` must count, from
+#: the lines it printed (every kernel not named: none)
+WALKTHROUGHS = {
+    "01_transport_loopback.py": lambda lines: {},  # the host's loopback transport
+    # one exchange, K1 once a receiver of two; the device-side fetch, K1 once
+    "02_hbm_shuffle.py": lambda lines: {"K1": 2 + 1},
+    # impl='auto' resolves to the sample sort over four executors: one
+    # exchange, K1 once a receiver
+    "03_terasort.py": lambda lines: {"K1": 4},
+    # four executors: GROUP BY with its combine off, one exchange (K1 4); the
+    # join's two sides (K1 8); SparkTC's edges once (K1 4), then two
+    # exchanges a round (K1 8 a round)
+    "04_workloads.py": lambda lines: {"K1": 4 + 8 + 4 + 8 * _matched(r"in (\d+) rounds", lines)},
+    "05_manager_pipeline.py": lambda lines: {"K1": 2},  # one exchange, K1 once a receiver of two
+    # one sample sort a device batch over four executors, K1 once a receiver
+    "06_external_sort.py": lambda lines: {"K1": 4 * _matched(r"through (\d+) device batches", lines)},
+}
+
+
+def walkthroughs(device) -> dict:
+    """Phase 22, first half: each walkthrough's ``main`` on the card,
+    checking its own oracle, its OK lines logged; every kernel call held
+    against its plain version and the launches, set to 0 just before and
+    read just after, held to the counts of ``WALKTHROUGHS``."""
+    import contextlib
+    import importlib.util
+    import io
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sparkucx_tpu_torch", "examples")
+    out = {}
+    for script, expected in WALKTHROUGHS.items():
+        spec = importlib.util.spec_from_file_location(f"walkthrough_{script[:2]}", os.path.join(here, script))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _, secs, launched = held_run(lambda: mod.main(["--device", device.type]))
+        lines = printed.getvalue().splitlines()
+        assert lines and all(ln.startswith("OK") for ln in lines), f"{script}: {lines}"
+        log(f"  {script} ({secs:.2f} s), launches {launched}, every kernel call held against its plain version:")
+        for line in lines:
+            log(f"    {line}")
+        want = expected(lines)
+        assert launched == want, f"{script}: launches {launched}, want {want}"
+        out[script] = {"lines": lines, "launches": launched, "seconds": secs}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=SEED, help="seed of the TPC-H data and the graphs (phases 11-12, 18-19)")
@@ -2951,7 +3315,9 @@ def main() -> int:
     )
 
     log("phase 4: host route through the ShuffleManager SPI")
-    host_route(device)
+    route = host_route(device)
+    assert route["exchange_launches"] == {"K1": route["rounds"]} and not route["read_launches"], (
+        "phase 4: K1 once a staging round (one executor, one shot), and no launch in the reads")
 
     log("phase 5: four executors sharing the card")
     shared_device_exchange(device)
@@ -2997,6 +3363,11 @@ def main() -> int:
     log("phase 14: K5 against its plain version")
     check_fused_kernel(device)
 
+    # phase 21 runs the fused quantized route on phase 13's plan geometry (phase 15 consumes the seal)
+    geometry = {"seal": [(s.cpu().numpy(), c.cpu().numpy(), o.cpu().numpy(), int(pk.shape[0]))
+                         for s, c, o, pk in keep["seal"]],
+                "staging_rows": keep["staging_rows"], "sizes": keep["sizes"]}
+
     log("phase 15: the fused send side at groupby_big's four-executor shape (build_fused_ici_exchange)")
     k5_row, fused = fused_send_side(device, keep)
     assert k5_row["launches"] == 1, "the fused send side did not run through K5"
@@ -3020,6 +3391,22 @@ def main() -> int:
     log("phase 20: the benchmark CLI's modes on the card (python -m sparkucx_tpu_torch.perf.benchmark)")
     modes = cli_modes(device)
 
+    log("phase 21: the quantized exchange at 4 GiB, four executors sharing the card (K3 at 132-byte rows)")
+    quantized = quantized_exchange(device, args.seed + 4, geometry)
+    del geometry
+    torch.cuda.empty_cache()
+
+    log("phase 22: the six walkthroughs on the card, then the spilling reduce side")
+    walks = walkthroughs(device)
+    # GroupByTest at 1,000 records of 1,000 B a mapper (1 MB a reducer), keys
+    # drawn from 4,000 so that they repeat, each reducer spilling past 256 KiB
+    spilled = host_route(device, kv_pairs=1000, seed=args.seed + 5, keyspace=4000, grouped=True,
+                         reduce_memory_budget=256 << 10)
+    assert spilled["exchange_launches"] == {"K1": spilled["rounds"]} and not spilled["read_launches"], (
+        "phase 22: K1 once a staging round (one executor, one shot), and no launch in the reads")
+    assert min(spilled["spills"]) > 0, "a reducer did not spill under the 256 KiB budget"
+    spilled = {k: v for k, v in spilled.items() if k != "report"}
+
     log(json.dumps({"main_path": {k: v for k, v in stats.items() if k != "launches"}}))
     sort_stats["k6"] = {k: table[2][k] for k in ("steps_ms", "design_bytes_ms", "first_design_bound_ms")}
     log(json.dumps({"terasort": sort_stats}))
@@ -3029,6 +3416,8 @@ def main() -> int:
     log(json.dumps({"ici": {str(n): p for n, p in ici["per_n"].items()}, "ici_held": ici["held"]}))
     log(json.dumps({"tpch_q18_sf10": q18, "sparktc": tc}))
     log(json.dumps({"benchmark_modes": {k: {f: v for f, v in m.items() if f != "lines"} for k, m in modes.items()}}))
+    log(json.dumps({"quantized_exchange": quantized}))
+    log(json.dumps({"walkthroughs": walks, "spilling_reduce_side": spilled}))
     log(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -19,7 +19,9 @@ Quantized row layout, bit for bit the JAX package's: for a float row of
 width ``w`` and block size ``B`` (a multiple of 4), ``wq = ceil(w/B)*B``
 padded values pack 4 int8 per int32 word (byte k of word i is value
 ``4*i + k``, little end first) — ``wq//4`` words — followed by ``nb = wq//B``
-per-block float32 scales whose bits are the int32 words.
+per-block float32 scales whose bits are the int32 words.  The packing is a
+view of the int8 values as int32 words, so it holds on little-endian hosts
+and devices (x86, Arm, every CUDA card).
 """
 
 from __future__ import annotations
@@ -139,10 +141,19 @@ class QuantizeSpec:
         return 0.0
 
 
+#: float32 1/127: inside a jit, XLA folds the JAX package's ``amax / 127``
+#: into a product with this reciprocal, and the JAX package quantizes only
+#: inside jitted builders; the scales here round as they do there
+_RECIPROCAL_127 = 1.0 / 127.0
+
+
 def _block_scales(spec: QuantizeSpec, amax: torch.Tensor) -> torch.Tensor:
-    """float32 scale per block from its max |value| (1.0 for an all-zero block)."""
+    """float32 scale per block from its max |value| (1.0 for an all-zero
+    block): ``amax * float32(1/127)``, rounded as the JAX package's jitted
+    code rounds ``amax / 127``."""
     one = torch.ones((), dtype=torch.float32, device=amax.device)
-    s = torch.where(amax > 0, amax / 127.0, one)
+    r = torch.tensor(_RECIPROCAL_127, dtype=torch.float32, device=amax.device)
+    s = torch.where(amax > 0, amax * r, one)
     if spec.mode == "int8":
         return s
     # blockfloat: power-of-two shared exponent — no mantissa error in the scale
@@ -161,13 +172,15 @@ def quantize_rows(spec: QuantizeSpec, x: torch.Tensor) -> torch.Tensor:
     rows, w = x.shape
     wq = spec.padded_width(w)
     nb = spec.num_blocks(w)
-    xp = torch.nn.functional.pad(x.to(torch.float32), (0, wq - w))
+    xp = x.to(torch.float32)
+    if wq != w:
+        xp = torch.nn.functional.pad(xp, (0, wq - w))
     blocks = xp.reshape(rows, nb, spec.block_size)
-    scale = _block_scales(spec, blocks.abs().amax(dim=2))
-    q = torch.clamp(torch.round(blocks / scale[:, :, None]), -127, 127).to(torch.int32)
-    qb = (q.reshape(rows, wq // 4, 4) & 0xFF).to(torch.int64)
-    packed = (qb[..., 0] | (qb[..., 1] << 8) | (qb[..., 2] << 16) | (qb[..., 3] << 24))
-    packed = (packed - ((packed >> 31) << 32)).to(torch.int32)  # the word's two's-complement value
+    lo, hi = torch.aminmax(blocks, dim=2)  # max |value| a block, in one read
+    scale = _block_scales(spec, torch.maximum(hi, -lo))
+    q = (blocks / scale[:, :, None]).round_().clamp_(-127, 127).to(torch.int8)
+    # byte k of word i is value 4*i + k: the int8 row read as little-endian words
+    packed = q.reshape(rows, wq).view(torch.int32)
     return torch.cat([packed, scale.contiguous().view(torch.int32)], dim=1)
 
 
@@ -183,11 +196,7 @@ def dequantize_rows(spec: QuantizeSpec, payload: torch.Tensor, w: int) -> torch.
     nb = spec.num_blocks(w)
     if qw != wq // 4 + nb:
         raise ValueError(f"payload width {qw} != quantized_width({w}) = {wq // 4 + nb}")
-    packed = payload[:, : wq // 4].to(torch.int32)
+    q = payload[:, : wq // 4].to(torch.int32).contiguous().view(torch.int8)  # the words' bytes, value order
     scale = payload[:, wq // 4 :].contiguous().view(torch.float32)
-    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=payload.device)
-    b = (packed[..., None] >> shifts) & 0xFF
-    b = torch.where(b >= 128, b - 256, b)  # sign-extend int8
-    q = b.reshape(rows, nb, spec.block_size).to(torch.float32)
-    x = q * scale[:, :, None]
+    x = q.reshape(rows, nb, spec.block_size).to(torch.float32) * scale[:, :, None]
     return x.reshape(rows, wq)[:, :w]

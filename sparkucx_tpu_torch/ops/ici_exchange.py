@@ -21,11 +21,18 @@ pure Python) and the flat builders, for executors that share one device.
   dense all-to-all produces, and its compaction by the receive sizes (K1)
   makes the result equal the stock exchange (ops/exchange.py) bit for bit.
 
+* **Quantized exchange** (tier b of ops/compress.py): float32 rows are
+  quantized to int8 words with per-block scales (``quantize_rows``, torch
+  ops), the int32 payload rides K3, each receiver's grid is compacted by K1
+  and dequantized (``build_quantized_exchange``); the fused variant first
+  places the packed map-output blocks into the float staging with K2
+  (``build_quantized_fused_exchange``: the quantize sits between the scatter
+  and the ring, so K5 cannot serve it).
+
 Executors that share one device ride one ring whose hops never leave the
 device, so the fabric kind is always ``'ici'``.  Executors on different
 devices need NCCL (ROADMAP queue A item 4) and raise
-``NotImplementedError``.  The hierarchical and quantized builders are not
-ported yet.
+``NotImplementedError``.  The hierarchical builders are not ported yet.
 
 Selection: ``spark.shuffle.tpu.exchange.impl`` = ``stock`` (default) |
 ``pallas`` (this module) | ``auto`` (``pallas`` only on a TPU, so ``stock``
@@ -41,9 +48,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sparkucx_tpu_torch.ops.block_kernels import block_gather, plan_tensors
+from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_scatter, plan_tensors
 from sparkucx_tpu_torch.ops.columnar import _CROSS_DEVICE
 from sparkucx_tpu_torch.ops.combine import CombineSpec, merge_accumulators
+from sparkucx_tpu_torch.ops.compress import QuantizeSpec, dequantize_rows, quantize_rows
 from sparkucx_tpu_torch.ops.exchange import ExchangeSpec, build_exchange, same_device
 from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_ring_grid, ring_combine_grid, ring_exchange_grid
 from sparkucx_tpu_torch.utils.devices import resolve_devices
@@ -266,6 +274,23 @@ def _size_matrix(spec: ExchangeSpec, size_matrix) -> np.ndarray:
     return sizes
 
 
+def _received_sizes(spec: ExchangeSpec, size_matrix) -> np.ndarray:
+    """:func:`_size_matrix`, with each receiver's total within ``recv_rows``."""
+    sizes = _size_matrix(spec, size_matrix)
+    if sizes.sum(axis=0).max(initial=0) > spec.recv_rows:
+        raise ValueError(f"receiver gets {int(sizes.sum(axis=0).max())} rows > recv_rows={spec.recv_rows}")
+    return sizes
+
+
+def _check_fused_plan(starts, counts, n: int, num_blocks: int, max_block_rows: Optional[int]) -> None:
+    """The fused builders' plan checks: ``(n, num_blocks)`` rows and, when
+    ``max_block_rows`` is given, no larger block (a read back to the host)."""
+    if tuple(starts.shape) != (n, num_blocks):
+        raise ValueError(f"plan shape {tuple(starts.shape)} != {(n, num_blocks)}")
+    if max_block_rows is not None and num_blocks and int(counts.max()) > max(1, max_block_rows):
+        raise ValueError(f"a block of {int(counts.max())} rows exceeds max_block_rows={max_block_rows}")
+
+
 # ----------------------------------------------------------------------------
 # Builders (the contract of ops/exchange.build_exchange)
 # ----------------------------------------------------------------------------
@@ -298,10 +323,7 @@ def build_ici_exchange(
     def exchange(data: torch.Tensor, size_matrix) -> Tuple[torch.Tensor, torch.Tensor]:
         if tuple(data.shape) != (n * spec.send_rows, spec.lane):
             raise ValueError(f"data shape {tuple(data.shape)} != {(n * spec.send_rows, spec.lane)}")
-        sizes = _size_matrix(spec, size_matrix)
-        received = sizes.sum(axis=0)
-        if received.max(initial=0) > spec.recv_rows:
-            raise ValueError(f"receiver gets {int(received.max())} rows > recv_rows={spec.recv_rows}")
+        sizes = _received_sizes(spec, size_matrix)
         grid = ring_exchange_grid(n, slot, slot // schedule.chunks, schedule.raw_steps(), data.contiguous())
         recv = compact_slots(grid, sizes, slot, spec.recv_rows)
         return recv, torch.from_numpy(np.ascontiguousarray(sizes.T))
@@ -348,14 +370,8 @@ def build_fused_ici_exchange(
     def exchange(starts, counts, outs, packed: torch.Tensor, staging: torch.Tensor, size_matrix):
         if tuple(staging.shape) != (n * spec.send_rows, spec.lane):
             raise ValueError(f"staging shape {tuple(staging.shape)} != {(n * spec.send_rows, spec.lane)}")
-        if tuple(starts.shape) != (n, num_blocks):
-            raise ValueError(f"plan shape {tuple(starts.shape)} != {(n, num_blocks)}")
-        sizes = _size_matrix(spec, size_matrix)
-        received = sizes.sum(axis=0)
-        if received.max(initial=0) > spec.recv_rows:
-            raise ValueError(f"receiver gets {int(received.max())} rows > recv_rows={spec.recv_rows}")
-        if max_block_rows is not None and num_blocks and int(counts.max()) > max(1, max_block_rows):
-            raise ValueError(f"a block of {int(counts.max())} rows exceeds max_block_rows={max_block_rows}")
+        _check_fused_plan(starts, counts, n, num_blocks, max_block_rows)
+        sizes = _received_sizes(spec, size_matrix)
         grid = fused_scatter_ring_grid(
             n, slot, slot // schedule.chunks, schedule.raw_steps(), starts, counts, outs, packed, staging
         )
@@ -365,6 +381,123 @@ def build_fused_ici_exchange(
     exchange.spec = spec
     exchange.schedule = schedule
     exchange.lowering = low
+    return exchange
+
+
+# ----------------------------------------------------------------------------
+# Quantized builders (tier-b payload reduction, ops/compress.py)
+# ----------------------------------------------------------------------------
+
+
+def _quantized_prep(devices, spec: ExchangeSpec, quantize: QuantizeSpec, lowering, chunks_per_dest, schedule):
+    """Shared validation and schedule of the quantized builders (one flat
+    ring only).  Returns (devices, lowering, schedule)."""
+    if getattr(schedule, "kind", "ici") == "dcn":
+        raise ValueError("quantized exchange supports flat meshes only (a 'dcn' schedule spans slices)")
+    devices = resolve_devices(devices, spec.num_executors)
+    quantize.validate()
+    if not quantize.enabled:
+        raise ValueError(
+            "quantized exchange needs quantize mode 'int8'|'blockfloat'; "
+            "use build_ici_exchange for the lossless path"
+        )
+    spec.validate()
+    if spec.num_executors == 1:
+        raise ValueError("quantized ici exchange needs num_executors > 1")
+    low, schedule = _flat_schedule(devices, spec, lowering, chunks_per_dest, schedule)
+    return devices, low, schedule
+
+
+def _quantized_ring(spec: ExchangeSpec, quantize: QuantizeSpec, schedule: RingSchedule, staged: torch.Tensor,
+                    sizes: np.ndarray) -> torch.Tensor:
+    """Quantize the float32 staging, ring the int32 payload (K3), compact
+    every receiver (K1) and dequantize: the float32 receive buffer."""
+    n, slot = spec.num_executors, spec.slot_rows
+    q = quantize_rows(quantize, staged)
+    grid = ring_exchange_grid(n, slot, slot // schedule.chunks, schedule.raw_steps(), q)
+    del q
+    outq = compact_slots(grid, sizes, slot, spec.recv_rows)
+    del grid
+    return dequantize_rows(quantize, outq, spec.lane)
+
+
+def _check_float(name: str, t: torch.Tensor, rows: int, lane: int) -> None:
+    if tuple(t.shape) != (rows, lane) or t.dtype != torch.float32:
+        raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must be ({rows}, {lane}) float32")
+
+
+def build_quantized_exchange(
+    devices: Optional[Sequence],
+    spec: ExchangeSpec,
+    quantize: QuantizeSpec,
+    *,
+    chunks_per_dest: int = 1,
+    lowering: str = "auto",
+    schedule=None,
+):
+    """The quantized scheduled exchange: ``fn(data, size_matrix) -> (recv,
+    recv_sizes)`` with ``build_ici_exchange``'s contract, but ``data`` and
+    ``recv`` FLOAT32 ``(rows, lane)``.  Each row is quantized on the send
+    side (``quantize.quantized_width(lane)`` int32 lanes: four int8 values a
+    word, then one float32 scale a block), the int32 payload rides the ring
+    (K3), each receiver's grid is compacted (K1) and dequantized.  LOSSY:
+    every value stays within ``quantize.error_bound`` of its block's largest
+    magnitude; row counts and receive sizes are the stock exchange's."""
+    devices, low, schedule = _quantized_prep(devices, spec, quantize, lowering, chunks_per_dest, schedule)
+    n = spec.num_executors
+
+    def exchange(data: torch.Tensor, size_matrix) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check_float("data", data, n * spec.send_rows, spec.lane)
+        sizes = _received_sizes(spec, size_matrix)
+        recv = _quantized_ring(spec, quantize, schedule, data.contiguous(), sizes)
+        return recv, torch.from_numpy(np.ascontiguousarray(sizes.T))
+
+    exchange.spec = spec
+    exchange.schedule = schedule
+    exchange.lowering = low
+    exchange.qspec = quantize
+    return exchange
+
+
+def build_quantized_fused_exchange(
+    devices: Optional[Sequence],
+    spec: ExchangeSpec,
+    quantize: QuantizeSpec,
+    num_blocks: int,
+    *,
+    chunks_per_dest: int = 1,
+    lowering: str = "auto",
+    schedule=None,
+    max_block_rows: Optional[int] = None,
+):
+    """Quantized twin of ``build_fused_ici_exchange``: ``fn(starts, counts,
+    outs, packed, staging, size_matrix) -> (recv, recv_sizes)`` with FLOAT32
+    ``packed``, ``staging`` and ``recv``.  Every executor's packed blocks go
+    into its staging IN PLACE (K2, one launch an executor), then the staging
+    takes ``build_quantized_exchange``'s route: quantize, K3, K1, dequantize.
+    The quantize sits between the scatter and the ring, so K5, which fuses
+    the two, cannot serve it (the JAX builder scatters through its window
+    scan for the same reason).  The plan triple and ``max_block_rows`` are
+    ``build_fused_ici_exchange``'s."""
+    devices, low, schedule = _quantized_prep(devices, spec, quantize, lowering, chunks_per_dest, schedule)
+    n, ns = spec.num_executors, spec.send_rows
+
+    def exchange(starts, counts, outs, packed: torch.Tensor, staging: torch.Tensor, size_matrix):
+        _check_float("staging", staging, n * ns, spec.lane)
+        if packed.dtype != torch.float32 or packed.dim() != 2 or packed.shape[0] % n:
+            raise ValueError(f"packed {tuple(packed.shape)} {packed.dtype} must be (n * P, lane) float32")
+        _check_fused_plan(starts, counts, n, num_blocks, max_block_rows)
+        sizes = _received_sizes(spec, size_matrix)
+        p = packed.shape[0] // n
+        for i in range(n):
+            block_scatter(starts[i], counts[i], outs[i], packed[i * p : (i + 1) * p], staging[i * ns : (i + 1) * ns])
+        recv = _quantized_ring(spec, quantize, schedule, staging, sizes)
+        return recv, torch.from_numpy(np.ascontiguousarray(sizes.T))
+
+    exchange.spec = spec
+    exchange.schedule = schedule
+    exchange.lowering = low
+    exchange.qspec = quantize
     return exchange
 
 

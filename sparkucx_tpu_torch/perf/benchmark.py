@@ -42,6 +42,9 @@ their wrappers' ``launches``):
   exchange (K3 once, then K1 n) followed by the plain fold.
 * ``ici`` — the scheduled ring (K3, then K1 compaction) against the stock
   exchange at widths 2, 4 and 8, and the fused send side (K5).
+* ``measure_quantized_ici`` — the quantized leg of the ``compress`` mode
+  (quantize, K3, K1 a receiver, dequantize) against the float32 stock
+  exchange; the mode itself waits on its codec legs (``UNPORTED``).
 
 Lowering names map as ``ops/ici_exchange.py`` ``resolve_ici_lowering`` maps
 them: ``--impl auto|dma|tiled`` and ``--sort-impl auto|radix|single`` take the
@@ -75,7 +78,7 @@ MODES = (
 UNPORTED = {
     **{m: (7, "the wire and serving plane") for m in ("server", "client", "wire", "failover", "tenants", "gray",
                                                        "fanin", "obs")},
-    "compress": (3, "the quantized exchange"),
+    "compress": (7, "the wire and serving plane its codec legs run on"),
     "elastic": (6, "the multi-process bootstrap and elastic path"),
     "queries": (8, "the query runner"),
 }
@@ -133,6 +136,18 @@ def _same_rows(a: torch.Tensor, b: torch.Tensor, sizes: np.ndarray, recv_rows: i
         if not torch.equal(a[lo : lo + used], b[lo : lo + used]):
             return False
     return True
+
+
+def max_err_rows(a: torch.Tensor, b: torch.Tensor, sizes: np.ndarray, recv_rows: int) -> float:
+    """The largest |a - b| over every receiver's received rows (the prefix
+    ``sizes`` gives): the stock exchange leaves the rows past it unspecified."""
+    err = 0.0
+    for j in range(sizes.shape[0]):
+        used = int(sizes[:, j].sum())
+        lo = j * recv_rows
+        if used:
+            err = max(err, float((a[lo : lo + used] - b[lo : lo + used]).abs().max()))
+    return err
 
 
 def _shard_bytes(recv: torch.Tensor, receiver: int, recv_rows: int, rows: int) -> np.ndarray:
@@ -1019,6 +1034,86 @@ def measure_ici(
             "k5_launches": k5,
         },
     }
+
+
+def measure_quantized_ici(
+    num_executors: int = 4,
+    slot_rows: int = 1024,
+    lane: int = 128,
+    iterations: int = 5,
+    modes=("int8", "blockfloat"),
+    report=None,
+    device="cuda",
+) -> dict:
+    """Tier-(b) core of the ``compress`` mode (the mode itself waits on its
+    codec legs): the quantized exchange (ops/ici_exchange.py
+    ``build_quantized_exchange``: quantize, K3, K1 a receiver, dequantize)
+    against the stock float32 exchange (``build_exchange``, the float rows
+    through the int32 lane: K1 a receiver), executors sharing ``device``.
+    Both take the same seeded payload; each mode's result is held within the
+    spec's per-block error bound of the stock one, with equal receive sizes,
+    then both are timed over chained iterations.  Effective GB/s counts the
+    LOGICAL float32 bytes sent to other executors; ``wire_reduction`` is the
+    quantized payload's saving in bytes."""
+    from sparkucx_tpu_torch.ops.compress import QuantizeSpec
+    from sparkucx_tpu_torch.ops.exchange import ExchangeSpec, build_exchange
+    from sparkucx_tpu_torch.ops.ici_exchange import build_quantized_exchange
+
+    n = int(num_executors)
+    if n < 2:
+        raise RuntimeError(f"quantized ici leg needs >= 2 executors (have {n})")
+    devices = _executors(device, n)
+    dev = devices[0]
+    slot = slot_rows
+    send_rows = n * slot
+    spec = ExchangeSpec(n, send_rows, send_rows, lane)
+    stock = build_exchange(devices, spec)
+
+    rng = np.random.default_rng(11)
+    sizes = rng.integers(1, slot + 1, size=(n, n)).astype(np.int32)
+    data_f32 = rng.standard_normal((n * send_rows, lane), dtype=np.float32)
+    data = torch.from_numpy(data_f32).to(dev)
+    remote_bytes = n * (n - 1) * slot * lane * 4
+
+    def time_impl(label, fn, make_data):
+        best = 0.0
+        for it in range(iterations):
+            cur = make_data()
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(4):  # chained: each receive buffer feeds the next exchange
+                cur, _ = fn(cur, sizes)
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            best = max(best, 4 * remote_bytes / dt / 1e9)
+            if report is not None:
+                report(label, n, it, dt, 4 * remote_bytes)
+        return best
+
+    # oracle: the exact float32 rows every mode must approximate
+    ref, ref_sizes = stock(data.view(torch.int32), sizes)
+    ref = ref.view(torch.float32)
+    stock_gbps = time_impl("f32", stock, lambda: data.view(torch.int32).clone())
+    amax = float(data.abs().max())
+    out: dict = {"n": n, "f32_gbps": stock_gbps, "modes": {}}
+    for mode in modes:
+        q = QuantizeSpec(mode=mode, block_size=128)
+        qfn = build_quantized_exchange(devices, spec, q)
+        got, got_sizes = qfn(data, sizes)
+        assert torch.equal(got_sizes, ref_sizes), f"quantized exchange sizes diverged ({mode})"
+        bound = q.error_bound(amax)
+        err = max_err_rows(got, ref, sizes, send_rows)
+        assert err <= bound + 1e-7, f"dequant error {err} above bound {bound} ({mode})"
+        del got
+        mode_gbps = time_impl(mode, qfn, lambda: data.clone())
+        out["modes"][mode] = {
+            "gbps": mode_gbps,
+            "speedup_vs_f32": mode_gbps / max(stock_gbps, 1e-9),
+            "wire_reduction": lane / q.quantized_width(lane),
+            "max_err": err,
+            "err_bound": bound,
+        }
+    return out
 
 
 def run_ici(args) -> None:

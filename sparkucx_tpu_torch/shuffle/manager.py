@@ -96,6 +96,7 @@ class TpuShuffleManager:
         deserializer: Callable = default_deserializer,
         aggregator=None,
         key_ordering: bool = False,
+        merge_combiners=None,
     ) -> TpuShuffleReader:
         """getReader (compat/spark_3_0/UcxShuffleManager.scala:55-60).  The
         reduce range must be owned by one executor; defaults to the owner of
@@ -122,6 +123,9 @@ class TpuShuffleManager:
             aggregator=aggregator,
             key_ordering=key_ordering,
             fetch_retries=self.conf.fetch_retries,
+            memory_budget=self.conf.reduce_memory_budget,
+            spill_dir=self.conf.spill_dir,
+            merge_combiners=merge_combiners,
         )
 
     def unregister_shuffle(self, shuffle_id: int) -> None:

@@ -10,13 +10,14 @@ Counterpart of ``UcxShuffleReader`` + ``UcxShuffleClient``
   and charges the wait to ``fetch_wait_ns`` (UcxShuffleReader.scala:110-134),
 * a failed batch fetch retries through the per-block pull path
   ``transport.fetch_block``, up to ``fetch_retries`` attempts,
-* then deserialize -> aggregate -> sort (UcxShuffleReader.scala:137-199), in
-  memory: an aggregator folds values per key in first-seen key order, and
-  ``key_ordering`` sorts by key — the order the JAX package's
-  ``ExternalCombiner`` yields when nothing spills.
+* then deserialize -> aggregate -> sort (UcxShuffleReader.scala:137-199)
+  through the spilling ``ExternalCombiner`` (shuffle/external.py) under
+  ``memory_budget`` bytes (conf ``reduceMemoryBudget``), its runs in
+  ``spill_dir``: a reduce partition larger than memory streams through
+  sorted disk runs, and ``metrics.spills`` counts them.
 
-Hedged fetches, circuit breakers, replica failover, credit-pipelined windows
-and the spilling combiner are not part of this port yet.
+Hedged fetches, circuit breakers, replica failover and credit-pipelined
+windows are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from sparkucx_tpu_torch.core.block import MemoryBlock, ShuffleBlockId
 from sparkucx_tpu_torch.core.operation import OperationStatus, Request, TransportError
 from sparkucx_tpu_torch.core.transport import ExecutorId, ShuffleTransport
 from sparkucx_tpu_torch.memory.pool import MemoryPool
+from sparkucx_tpu_torch.shuffle.external import ExternalCombiner
 from sparkucx_tpu_torch.utils.codec import decode_records, encode_records
 
 
@@ -43,6 +45,8 @@ class ShuffleReadMetrics:
     remote_blocks_fetched: int = 0
     fetch_wait_ns: int = 0
     blocks_retried: int = 0
+    #: combine/sort runs spilled to disk (the ExternalSorter spill counter)
+    spills: int = 0
 
 
 def default_deserializer(payload) -> Iterable[Any]:
@@ -75,6 +79,9 @@ class TpuShuffleReader:
         key_ordering: bool = False,
         sender_of: Optional[Callable[[int], ExecutorId]] = None,
         fetch_retries: int = 1,
+        memory_budget: int = 64 << 20,
+        spill_dir: Optional[str] = None,
+        merge_combiners: Optional[Callable[[Any, Any], Any]] = None,
     ) -> None:
         self.transport = transport
         self.executor_id = executor_id
@@ -90,6 +97,11 @@ class TpuShuffleReader:
         self.key_ordering = key_ordering
         self.sender_of = sender_of or (lambda m: self.executor_id)
         self.fetch_retries = max(0, fetch_retries)
+        self.memory_budget = memory_budget
+        self.spill_dir = spill_dir
+        #: merges two spilled runs' accumulators of one key (Spark's
+        #: mergeCombiners); None = ``aggregator``, right for sum-like folds
+        self.merge_combiners = merge_combiners
         self.metrics = ShuffleReadMetrics()
 
     # -- raw block iterator ------------------------------------------------
@@ -165,7 +177,11 @@ class TpuShuffleReader:
     # -- record pipeline ---------------------------------------------------
 
     def read(self) -> Iterator[Any]:
-        """deserialize -> combine -> sort (UcxShuffleReader.scala:137-199)."""
+        """deserialize -> combine -> sort (UcxShuffleReader.scala:137-199).
+
+        Combine and sort run through the spilling ``ExternalCombiner`` under
+        ``memory_budget`` (module docstring); without either, records stream
+        and nothing materializes."""
 
         def records() -> Iterator[Any]:
             for _, payload in self.fetch_blocks():
@@ -175,13 +191,24 @@ class TpuShuffleReader:
 
         if self.aggregator is None and not self.key_ordering:
             return records()
-        if self.aggregator is not None:
-            combined: dict = {}
-            for k, v in records():
-                combined[k] = self.aggregator(combined[k], v) if k in combined else v
-            pairs = list(combined.items())
-        else:
-            pairs = list(records())
-        if self.key_ordering:
-            pairs.sort(key=lambda kv: kv[0])
-        return iter(pairs)
+        combiner = ExternalCombiner(
+            aggregator=self.aggregator,
+            key_ordering=self.key_ordering,
+            memory_budget=self.memory_budget,
+            spill_dir=self.spill_dir,
+            merge_combiners=self.merge_combiners,
+        )
+        try:
+            combiner.insert_all(records())
+        except BaseException:
+            combiner.close()  # reclaim spilled runs: mkstemp files do not delete themselves
+            raise
+        self.metrics.spills = combiner.spill_count
+
+        def drain(c: ExternalCombiner) -> Iterator[Any]:
+            try:
+                yield from c
+            finally:
+                c.close()
+
+        return drain(combiner)

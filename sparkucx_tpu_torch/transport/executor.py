@@ -15,7 +15,7 @@ receive state.
 
 ``build_plan_exchange`` is the lowering dispatch for one plan's geometry.
 Its flat builders take the executors' ``devices`` where the JAX builders
-take a mesh; the hierarchical and quantized routes are not ported yet.
+take a mesh; the hierarchical route is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from sparkucx_tpu_torch.ops.ici_exchange import (
     DEFAULT_CHUNKS_PER_DEST,
     build_combine_exchange,
     build_ici_exchange,
+    build_quantized_exchange,
 )
 from sparkucx_tpu_torch.ops.skew import ExchangePlan
 from sparkucx_tpu_torch.transport.pipeline import RoundPipeline
@@ -73,8 +74,10 @@ def build_plan_exchange(
     ``impl`` is the *resolved* tier (``resolve_exchange_impl`` over the
     plan's ``lowering`` field): ``'stock'`` is ``build_exchange`` and
     ``'pallas'`` the scheduled ring ``build_ici_exchange`` (K3, then K1
-    compaction); a ``CombineSpec`` routes to the receive-side fused-combine
-    exchange ``build_combine_exchange`` (K4).  The receive side holds
+    compaction); a ``QuantizeSpec`` routes to the lossy
+    ``build_quantized_exchange`` (quantize, K3, K1, dequantize) and a
+    ``CombineSpec`` to the receive-side fused-combine exchange
+    ``build_combine_exchange`` (K4).  The receive side holds
     ``recv_rows`` rows per receiver, by default the worst case, every region
     full (``recv_rows = send_rows``).  Callers keep their own caches; this
     function is the one place a key miss turns into a lowering."""
@@ -91,9 +94,9 @@ def build_plan_exchange(
             devices, spec, combine, chunks_per_dest=DEFAULT_CHUNKS_PER_DEST
         )
     if quantize is not None:
-        raise NotImplementedError(
-            "the quantized exchange is not ported yet (ROADMAP queue A item 3)"
-        )
+        # the quantized exchange is inherently the scheduled ring; ``impl``
+        # (stock|pallas) does not choose among its routes
+        return build_quantized_exchange(devices, spec, quantize)
     if num_slices > 1:
         raise NotImplementedError(
             "the two-phase multi-slice exchange is not ported yet (ROADMAP queue A "

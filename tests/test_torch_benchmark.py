@@ -191,6 +191,9 @@ def test_unported_modes_are_exactly_the_rest():
               "join", "combine", "ici"}
     assert set(benchmark.UNPORTED) == set(benchmark.MODES) - ported
     assert len(benchmark.UNPORTED) == 11
+    # the compress mode's codec legs run on the wire plane (item 7); its
+    # quantized leg's core, measure_quantized_ici, is ported
+    assert benchmark.UNPORTED["compress"][0] == 7
 
 
 def test_cli_defaults_to_the_card(monkeypatch):

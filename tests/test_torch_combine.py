@@ -2,11 +2,13 @@
 JAX package's on the same seeded inputs.
 
 Tolerances: the quantized payload is bit-equal to ``compress.quantize_rows``
-(both round half to even and pack the same bytes), so dequantized values are
-bit-equal too.  ``combine_window`` and ``merge_accumulators`` are exact for
+as the JAX package runs it, inside a jit (both round half to even and pack
+the same bytes; XLA computes the scale ``amax / 127`` as a product with the
+float32 reciprocal there), so dequantized values are bit-equal too.  ``combine_window`` and ``merge_accumulators`` are exact for
 int32; float32 windows without repeated keys are exact as well (each group
 gets one addition per window in both packages)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,7 +36,7 @@ def test_quantize_rows_bit_equal_to_jax(mode, w, block):
     x = _rows(rng, 64, w)
     jspec = jax_compress.QuantizeSpec(mode=mode, block_size=block)
     tspec = torch_compress.QuantizeSpec(mode=mode, block_size=block)
-    want = np.asarray(jax_compress.quantize_rows(jspec, jnp.asarray(x)))
+    want = np.asarray(jax.jit(lambda a: jax_compress.quantize_rows(jspec, a))(jnp.asarray(x)))
     got = torch_compress.quantize_rows(tspec, torch.from_numpy(x))
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert np.array_equal(got.numpy(), want)

@@ -892,3 +892,64 @@ def test_benchmark_cpu_lowerings_refused_on_the_card(cuda):
 
     with pytest.raises(ValueError, match="on the card"):
         benchmark.measure_gather(2, 4096, 1, 1, impl="xla")
+
+
+@pytest.mark.parametrize("n,chunks", [(2, 1), (4, 2), (8, 4)])
+def test_ring_exchange_grid_at_132_byte_rows(cuda, n, chunks):
+    """The quantized grid's rows: quantized_width(128) = 33 int32 lanes, 132
+    bytes, off the 16-byte path (K3's 4-byte words)."""
+    from sparkucx_tpu_torch.ops.ici_exchange import ring_schedule
+    from sparkucx_tpu_torch.ops.ring_kernels import ring_exchange_grid, ring_exchange_grid_ref
+
+    slot, lane = 1024 * chunks, 33
+    data = _ring_data(cuda, n, slot, lane, seed=n + 132)
+    steps = ring_schedule(n, chunks).raw_steps()
+    got = ring_exchange_grid(n, slot, slot // chunks, steps, data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ring_exchange_grid_ref(n, slot, slot // chunks, steps, data))
+
+
+def _quantized_counters():
+    from sparkucx_tpu_torch.ops.ring_kernels import fused_scatter_ring_grid, ring_exchange_grid
+
+    return {"K1": block_gather, "K2": block_scatter, "K3": ring_exchange_grid, "K5": fused_scatter_ring_grid}
+
+
+@pytest.mark.parametrize("mode", ["int8", "blockfloat"])
+def test_quantized_exchange_on_the_card_goes_through_k3_and_k1(cuda, mode):
+    """``build_quantized_exchange`` and its fused twin on the card: K3 once
+    and K1 once a receiver (K2 once an executor on the fused route, K5
+    never), each route bit-equal to the same builder on the CPU."""
+    from sparkucx_tpu_torch.ops.compress import QuantizeSpec
+    from sparkucx_tpu_torch.ops.exchange import ExchangeSpec
+    from sparkucx_tpu_torch.ops.ici_exchange import build_quantized_exchange, build_quantized_fused_exchange
+
+    n, slot, lane = 4, 512, 128
+    spec = ExchangeSpec(n, n * slot, n * slot, lane)
+    q = QuantizeSpec(mode=mode, block_size=128)
+    rng = np.random.default_rng(21)
+    data = rng.standard_normal((n * n * slot, lane), dtype=np.float32)
+    sizes = rng.integers(1, slot + 1, size=(n, n)).astype(np.int32)
+    counters = _quantized_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    got, rs = build_quantized_exchange([cuda] * n, spec, q)(torch.from_numpy(data).to(cuda), sizes)
+    torch.cuda.synchronize()
+    assert {k: c.launches - before[k] for k, c in counters.items()} == {"K1": n, "K2": 0, "K3": 1, "K5": 0}
+    want, wrs = build_quantized_exchange(["cpu"] * n, spec, q)(torch.from_numpy(data), sizes)
+    assert torch.equal(rs, wrs)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+    # the fused route: one block per (executor, destination), packed back to back
+    starts = np.tile(np.arange(n, dtype=np.int32) * slot, (n, 1))
+    counts = sizes.copy()
+    outs = (np.cumsum(counts, axis=1) - counts).astype(np.int32)
+    packed = rng.standard_normal((n * n * slot, lane), dtype=np.float32)
+    put = lambda a: torch.from_numpy(a).to(cuda)
+    fused = build_quantized_fused_exchange([cuda] * n, spec, q, n)
+    before = {k: c.launches for k, c in counters.items()}
+    got_f, _ = fused(put(starts), put(counts), put(outs), put(packed), torch.zeros_like(put(data)), sizes)
+    torch.cuda.synchronize()
+    assert {k: c.launches - before[k] for k, c in counters.items()} == {"K1": n, "K2": n, "K3": 1, "K5": 0}
+    cpu = build_quantized_fused_exchange(["cpu"] * n, spec, q, n)
+    want_f, _ = cpu(*(torch.from_numpy(a) for a in (starts, counts, outs, packed)), torch.zeros(data.shape), sizes)
+    assert torch.equal(got_f.cpu().view(torch.int32), want_f.view(torch.int32))

@@ -128,7 +128,15 @@ _PLAN_ENGINE_MODULES = (
 )
 
 
-@pytest.mark.parametrize("module", _PLAN_ENGINE_MODULES)
+_REDUCE_SIDE_MODULES = (
+    "sparkucx_tpu_torch.shuffle.external",
+    "sparkucx_tpu_torch.shuffle.reader",
+    "sparkucx_tpu_torch.shuffle.manager",
+    "sparkucx_tpu_torch.transport.loopback",
+)
+
+
+@pytest.mark.parametrize("module", _PLAN_ENGINE_MODULES + _REDUCE_SIDE_MODULES)
 def test_plan_engine_modules_import_without_jax(module):
     probe = f"import importlib, sys; importlib.import_module({module!r}); " + (
         "print('LOADED', sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'sparkucx_tpu')))"

@@ -219,9 +219,14 @@ def test_build_plan_exchange_matches_build_exchange(impl, rng):
 
 
 def test_build_plan_exchange_unported_routes_raise():
+    from sparkucx_tpu_torch.ops.compress import QuantizeSpec
+
     kw = dict(num_executors=2, send_rows=8, lane=4, impl="stock")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        build_plan_exchange(["cpu"] * 2, quantize=object(), **kw)
+    # the quantized route is ported (tests/test_torch_quantized_exchange.py):
+    # a QuantizeSpec reaches its builder, whose rejections it raises
+    assert build_plan_exchange(["cpu"] * 2, quantize=QuantizeSpec("int8", 4), **kw).qspec.mode == "int8"
+    with pytest.raises(ValueError, match="int8"):
+        build_plan_exchange(["cpu"] * 2, quantize=QuantizeSpec(), **kw)
     with pytest.raises(NotImplementedError, match="multi-slice"):
         build_plan_exchange(["cpu"] * 2, num_slices=2, **kw)
 
