@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the Hopper kernels from ``sparkucx_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, all started together), then runs twenty-two phases; any
+process per source, all started together), then runs twenty-three phases; any
 failure propagates and the exit code is non-zero:
 
 1. environment: card, power limit, versions, kernel build time;
@@ -143,7 +143,25 @@ failure propagates and the exit code is non-zero:
     launch counts; then phase 4's host route through the ShuffleManager SPI
     at 100 mappers x 100 reducers x 1,000 records of 1,000 bytes, grouped
     by key under a 256 KiB ``reduceMemoryBudget``: every reducer's groups
-    equal a dict oracle and every reducer spilled.
+    equal a dict oracle and every reducer spilled;
+23. the Spark-facing shuffle daemon and the peer wire on the card, at
+    GroupByTest's big gate (200 x 200 blocks, 25,000-byte values,
+    numKVPairs 1000, ~5 GB): a ``ShuffleDaemon`` with one, then four
+    executors sharing the card, under ``hostRecvMode`` ``array`` and
+    ``device``, written by four ``DaemonClient`` connections over loopback
+    TCP (committed lengths held against the written ones), RunExchange
+    (K1 counted: once a receiver), then every reducer's 200 blocks in one
+    FetchBlock batch, every byte held against the written ones; under
+    ``device`` the fetches once more with every K1 call held against its
+    plain version (one launch a batch) and the last timed at the
+    serve-batch shape; the raw ``jvm/fixtures/*.bin`` frames against a
+    daemon on the card; then two ``PeerTransport``s: executor 0's store
+    stages the same map output on the card (``write_partition_device``,
+    sealed by K2 once), executor 1 fetches every block at
+    ``wire.streams`` 1 (K1 once a batch, counted) and 4 (every K1 call of a
+    second run held, the last timed), then with ``wire.checksum`` on over
+    one reducer's first 40 blocks; then ``benchmark wire`` at 8 x 32 MiB
+    and a ``server`` process on an ephemeral port with a ``client``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -159,7 +177,9 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1883,11 +1903,14 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
     out = torch.zeros_like(dst)
     k2_ms = time_ms(lambda: block_scatter(s, c, o, packed, out), 10)
     k2_plain = time_ms(lambda: block_scatter_ref(s, c, o, packed, out), 3)
+    # the library call: one index_copy_ of the packed rows to their staging rows
+    idx = plan_index(device, tuple(t.cpu().numpy() for t in (s, c, o)), int(c.sum()))
+    k2_lib = time_ms(lambda: out.index_copy_(0, idx, packed[: idx.numel()]), 10)
     k2_bound = (2 * packed.numel() * 4 + 12 * s.numel()) / HBM_BYTES_PER_S * 1e3
     log(f"  block_scatter at the seal: every executor ({i + 1}) equal to block_scatter_ref; executor {i} "
         f"({s.numel()} blocks, {packed.shape[0]} rows of {packed.shape[1] * 4} B): {k2_ms:.4f} ms, "
-        f"plain {k2_plain:.4f} ms, bound {k2_bound:.4f} ms")
-    del s, c, o, packed, dst, out
+        f"plain {k2_plain:.4f} ms, library (index_copy_) {k2_lib:.4f} ms, bound {k2_bound:.4f} ms")
+    del s, c, o, packed, dst, out, idx
     grid, csizes, cslot, crecv = seen.pop("compact")["args"]
     plans = []
     for j in range(n):
@@ -1896,7 +1919,8 @@ def pallas_superstep(device, n=4, mappers=200, reducers=200, kv_pairs=1000, valu
     k1 = check_k1(device, "the pallas superstep's compaction", grid, plans, crecv)
     del grid, plans
     torch.cuda.empty_cache()
-    readings = {"launches": launches, "k2_seal": {"ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound},
+    readings = {"launches": launches, "k2_seal": {"ms": k2_ms, "plain_ms": k2_plain, "library_ms": k2_lib,
+                                                  "bound_ms": k2_bound},
                 "k1_compaction": k1}
 
     stock, stock_sizes, stock_secs, stock_launches = run("stock")
@@ -2783,26 +2807,30 @@ HELD = {"K1": ("block_kernels", "block_gather", _hold_gather), "K2": ("block_ker
 
 
 class _Held:
-    """One kernel's wrapper during a held run (:func:`holding`)."""
+    """One kernel's wrapper during a held run (:func:`holding`).  Calls from
+    several threads (phase 23's servers) run one at a time, so each call's
+    launches are its own."""
 
     def __init__(self, label: str, name: str, real, check, keep_last: bool):
         self.label, self.name, self.real, self.check, self.keep_last = label, name, real, check, keep_last
         # the kernel's own ``launches += 1`` lands here meanwhile, whoever calls it
         self.launches = self.held = self.held_launches = 0
         self.last = None
+        self._lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
-        before = args[4].clone() if self.label == "K2" else None  # K2 scatters into dst in place
-        launched = self.launches
-        got = self.real(*args, **kwargs)
-        assert self.check(args, got, before), (
-            f"{self.label} ({self.name}) differs from its plain version on call {self.held}")
-        del before
-        self.held += 1
-        self.held_launches += self.launches - launched
-        if self.keep_last:
-            self.last = (args, kwargs)
-        return got
+        with self._lock:
+            before = args[4].clone() if self.label == "K2" else None  # K2 scatters into dst in place
+            launched = self.launches
+            got = self.real(*args, **kwargs)
+            assert self.check(args, got, before), (
+                f"{self.label} ({self.name}) differs from its plain version on call {self.held}")
+            del before
+            self.held += 1
+            self.held_launches += self.launches - launched
+            if self.keep_last:
+                self.last = (args, kwargs)
+            return got
 
 
 def holding(kernels: dict, keep_last: bool = False) -> tuple:
@@ -3276,9 +3304,495 @@ def walkthroughs(device) -> dict:
     return out
 
 
+# -- phase 23 ---------------------------------------------------------------
+
+#: the JVM shim's fixture shuffle (scripts/gen_shim_fixtures.py, FixtureCheck.java)
+FIX_SHUFFLE, FIX_WRITER, FIX_REDUCE, FIX_TAG = 7, 3, 5, 0x1122334455667788
+FIX_BODY = bytes(range(256))
+
+
+def run_threads(fn, k: int) -> list:
+    """``fn(0) .. fn(k - 1)`` on ``k`` threads; their results, each thread's
+    exception raised here."""
+    with ThreadPoolExecutor(max_workers=k) as pool:
+        return [f.result() for f in [pool.submit(fn, i) for i in range(k)]]
+
+
+def groupby_host_blocks(device, mappers, reducers, kv_pairs, value_bytes, seed):
+    """:func:`groupby_blocks`' map output, each mapper's rows also copied to
+    the host once: (lengths (M, R), per-mapper device blocks, per-mapper flat
+    uint8 host array, byte offset of each block in it (M, R))."""
+    lengths, blocks = groupby_blocks(device, mappers, reducers, kv_pairs, value_bytes, seed)
+    rows = -(-lengths // ROW)
+    starts = (np.cumsum(rows, axis=1) - rows) * ROW
+    host = [torch.cat(b).cpu().numpy().reshape(-1).view(np.uint8) for b in blocks]
+    return lengths, blocks, host, starts
+
+
+def _check_batch(got, lengths, host, starts, r, first_map=0) -> int:
+    """Every fetched block of reducer ``r`` equal to the written bytes;
+    returns the bytes checked."""
+    nbytes = 0
+    for k, blk in enumerate(got):
+        m = first_map + k
+        ln = int(lengths[m, r])
+        assert blk is not None and len(blk) == ln, f"block ({m}, {r}): {None if blk is None else len(blk)} B, wrote {ln}"
+        s0 = int(starts[m, r])
+        assert np.array_equal(np.frombuffer(blk, np.uint8), host[m][s0 : s0 + ln]), (
+            f"block ({m}, {r}) differs from the written bytes")
+        nbytes += ln
+    return nbytes
+
+
+def daemon_groupby(device, n: int, mode: str, data, clients: int = 4) -> dict:
+    """Phase 23 (a): a ``ShuffleDaemon`` with ``n`` executors on the card,
+    ``clients`` ``DaemonClient`` connections writing GroupByTest's map output
+    over loopback TCP (CreateShuffle, OpenMapWriter, WritePartition,
+    CommitMap: the committed lengths held against the written ones), one
+    RunExchange (its kernels counted), then every reducer's blocks in one
+    FetchBlock batch each, every byte held against the written ones, under
+    ``hostRecvMode=mode``.  Under ``device`` the fetches run once more with
+    every K1 call held against its plain version (one launch a batch: a
+    reducer's blocks lie in one round on one consumer), the last timed at
+    the serve-batch shape."""
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import ShuffleBlockId
+    from sparkucx_tpu_torch.ops import block_kernels, ring_kernels
+    from sparkucx_tpu_torch.shuffle.daemon import DaemonClient, ShuffleDaemon
+    from sparkucx_tpu_torch.store.hbm_store import default_peer_ranges
+
+    lengths, _, host, starts = data
+    mappers, reducers = lengths.shape
+    padded = -(-lengths // ROW) * ROW
+    owner = np.arange(mappers) % n
+    region = max(int(padded[owner == e][:, a:b].sum()) for e in range(n) for a, b in default_peer_ranges(reducers, n))
+    conf = TpuShuffleConf(block_alignment=ROW, staging_capacity_per_executor=n * region, num_executors=n,
+                          host_recv_mode=mode, keep_device_recv=mode == "device")
+    payload = int(lengths.sum())
+    d = ShuffleDaemon(conf, num_executors=n, devices=[device] * n)
+    cs = [DaemonClient(d.address, conf) for _ in range(clients)]
+    sid = 0
+    out = {"executors": n, "mode": mode, "payload_gb": payload / 1e9, "blocks": int(mappers * reducers)}
+    try:
+        cs[0].create_shuffle(sid, mappers, reducers)
+
+        def write(k):
+            c = cs[k]
+            for m in range(k, mappers, clients):
+                w = c.open_map_writer(sid, m)
+                for r in range(reducers):
+                    ln = int(lengths[m, r])
+                    if ln:
+                        c.write_partition(w, r, memoryview(host[m])[int(starts[m, r]) : int(starts[m, r]) + ln])
+                assert c.commit_map(w).tolist() == lengths[m].tolist(), f"map {m}: committed lengths differ"
+
+        _, out["write_s"] = wall(lambda: run_threads(write, clients))
+        block_kernels.block_gather.launches = block_kernels.block_scatter.launches = 0
+        ring_kernels.ring_exchange_grid.launches = 0
+        _, out["run_exchange_s"] = wall(lambda: cs[0].run_exchange(sid))
+        out["exchange_launches"] = {"K1": block_kernels.block_gather.launches,
+                                    "K2": block_kernels.block_scatter.launches,
+                                    "K3": ring_kernels.ring_exchange_grid.launches}
+        assert out["exchange_launches"] == {"K1": n, "K2": 0, "K3": 0}, out["exchange_launches"]
+        out["device_ms"] = d.manager.cluster.device_times_ms(sid)
+        assert cs[0].stats(sid)["exchanged"]
+
+        def fetch(k):
+            return [(r, cs[k].fetch_blocks([ShuffleBlockId(sid, m, r) for m in range(mappers)]))
+                    for r in range(k, reducers, clients)]
+
+        fetched, out["fetch_s"] = wall(lambda: run_threads(fetch, clients))
+        checked = sum(_check_batch(got, lengths, host, starts, r) for part in fetched for r, got in part)
+        assert checked == payload
+        del fetched
+        # the serving side's own leg, no socket: every batch resolved to host
+        # views (slices of the host shards; under 'device' K1 and one copy to
+        # page-locked memory a batch), on one thread
+        cluster = d.manager.cluster
+
+        def resolve():
+            for r in range(reducers):  # each batch's views dropped as a send would drop them
+                cluster.received_block_views([ShuffleBlockId(sid, m, r) for m in range(mappers)])
+
+        _, out["resolve_s"] = wall(resolve)
+        if mode == "device":
+            wrappers, restore = holding(held_kernels(("K1",)), keep_last=True)
+            try:
+                fetched, out["held_fetch_s"] = wall(lambda: run_threads(fetch, clients))
+            finally:
+                restore()
+            held = wrappers["K1"]
+            out["fetch_launches"] = {"K1": held.launches}
+            assert held.launches == held.held_launches == held.held == reducers, (
+                f"K1 once a FetchBlock batch: {held.launches} launches, {held.held_launches} in {held.held} held calls")
+            assert sum(_check_batch(got, lengths, host, starts, r) for part in fetched for r, got in part) == payload
+            del fetched
+            args = held.last[0]
+            out["k1_serve_batch"] = check_k1_calls(device, f"the daemon's serve batch (n={n})", [args[:5]])
+            out["k1_held_calls"] = held.held
+        cs[0].remove_shuffle(sid)
+    finally:
+        for c in cs:
+            c.close()
+        d.close()
+    gb = out["payload_gb"]
+    out["write_gbps"], out["fetch_gbps"] = gb / out["write_s"], gb / out["fetch_s"]
+    log(f"  daemon, {n} executor(s), hostRecvMode={mode}: {gb:.3f} GB in {out['blocks']} blocks; write "
+        f"{out['write_s']:.3f} s ({out['write_gbps']:.3f} GB/s over {clients} connections), RunExchange "
+        f"{out['run_exchange_s'] * 1e3:.2f} ms (seal {out['device_ms'].get('seal', 0):.2f}, exchange "
+        f"{out['device_ms'].get('exchange', 0):.2f} ms on the device; launches {out['exchange_launches']}), "
+        f"fetch {out['fetch_s']:.3f} s ({out['fetch_gbps']:.3f} GB/s), every byte equal to the written ones; "
+        f"the batches resolved to host views alone, one thread: {out['resolve_s']:.3f} s")
+    if mode == "device":
+        log(f"    held run: K1 once a FetchBlock batch ({out['fetch_launches']}), each of its {out['k1_held_calls']} calls "
+            f"equal to its plain version, {out['held_fetch_s']:.3f} s")
+    return out
+
+
+def daemon_fixtures(device) -> dict:
+    """Phase 23 (a), last: the raw ``jvm/fixtures/*.bin`` frames against a
+    daemon on the card (``hostRecvMode=device``), in the order of
+    ``tests/test_daemon.py``'s replay: every ack ok, the fetch replies' sizes
+    and bytes as the shim expects, a removed shuffle's fetch all misses, and
+    the oversized frame dropping only its own connection."""
+    import socket
+    import struct
+
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import ShuffleBlockId
+    from sparkucx_tpu_torch.ops import block_kernels
+    from sparkucx_tpu_torch.shuffle.daemon import DaemonClient, ShuffleDaemon, _read_frame
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jvm", "fixtures")
+    fx = {name: open(os.path.join(here, name), "rb").read() for name in sorted(os.listdir(here))}
+    conf = TpuShuffleConf(staging_capacity_per_executor=1 << 20, num_executors=1, host_recv_mode="device",
+                          keep_device_recv=True)
+    d = ShuffleDaemon(conf, num_executors=1, devices=[device])
+    client = DaemonClient(d.address)
+    raw = socket.create_connection(d.address, timeout=30)
+
+    def ack(name):
+        raw.sendall(fx[name])
+        op, meta, body = _read_frame(raw)
+        assert meta.get("ok") is True, f"{name}: {meta}"
+        return meta, body
+
+    def fetch(name):
+        raw.sendall(fx[name])
+        hdr = _recv_all(raw, 20)
+        _, hlen, blen = struct.unpack("<IQQ", hdr)
+        reply = _recv_all(raw, hlen)
+        body = _recv_all(raw, blen)
+        tag, count = struct.unpack_from("<QI", reply)
+        assert tag == FIX_TAG
+        return [struct.unpack_from("<q", reply, 12 + 8 * i)[0] for i in range(count)], body
+
+    m0, m1r6, m3 = b"\xaa" * 100, b"\xcc" * 77, b"\xbb" * 300
+    try:
+        ack("01_create_shuffle.bin")
+        burn = [client.open_map_writer(FIX_SHUFFLE, m) for m in (0, 1, 3)]
+        assert burn == [0, 1, 2]
+        client.write_partition(burn[0], FIX_REDUCE, m0)
+        client.write_partition(burn[1], 6, m1r6)
+        client.write_partition(burn[2], FIX_REDUCE, m3)
+        assert ack("02_open_map_writer.bin")[0]["writer"] == FIX_WRITER
+        ack("03_write_partition.bin")
+        assert np.frombuffer(ack("04_commit_map.bin")[1], "<i8")[FIX_REDUCE] == len(FIX_BODY)
+        for w in burn:
+            client.commit_map(w)
+        ack("05_run_exchange.bin")
+        block_kernels.block_gather.launches = 0
+        assert fetch("06_fetch.bin") == ([100, 300], m0 + m3)
+        assert fetch("08_fetch_aqe_maprange.bin") == ([0, 256], FIX_BODY)
+        assert fetch("09_fetch_coalesced_empty.bin") == ([100, 0, 0, 77, 256, 0, 300, 0], m0 + m1r6 + FIX_BODY + m3)
+        launches = block_kernels.block_gather.launches
+        assert launches == 3, f"K1 once a fixture fetch: {launches}"
+        ack("07_remove_shuffle.bin")
+        assert fetch("06_fetch.bin") == ([-1, -1], b"")
+        over = socket.create_connection(d.address, timeout=30)
+        over.sendall(fx["10_oversized_frame.bin"])
+        assert over.recv(1) == b"", "the daemon accepted an oversized frame"
+        over.close()
+        client.create_shuffle(55, 1, 1)
+        w = client.open_map_writer(55, 0)
+        client.write_partition(w, 0, b"alive")
+        client.commit_map(w)
+        client.run_exchange(55)
+        assert client.fetch_blocks([ShuffleBlockId(55, 0, 0)]) == [b"alive"]
+    finally:
+        raw.close()
+        client.close()
+        d.close()
+    log(f"  the JVM shim's {len(fx)} fixture frames against the daemon on the card: every reply as the shim "
+        f"expects, K1 {launches} (one a fetch), the oversized frame dropped and the daemon serving after it")
+    return {"frames": len(fx), "fetch_launches": {"K1": launches}}
+
+
+def _recv_all(sock, n: int) -> bytes:
+    out = b""
+    while len(out) < n:
+        chunk = sock.recv(n - len(out))
+        assert chunk, "the daemon closed the connection mid-reply"
+        out += chunk
+    return out
+
+
+def peer_device_staged(device, data, checksum_maps: int = 40) -> dict:
+    """Phase 23 (b): two ``PeerTransport``s in one process.  Executor 0's
+    store stages GroupByTest's map output on the card through
+    ``write_partition_device`` and seals it (K2 once); executor 1 fetches
+    every block over loopback TCP, one reducer's blocks a batch, at
+    ``wire.streams`` 1 and 4 (K1 once a batch on executor 0's serving side,
+    counted), then once more at streams 1 with every K1 call held against
+    its plain version, the last timed at the serve-batch shape; then with
+    ``wire.checksum`` on at both ends (a second serving plane over the same
+    store), streams 4, over one reducer's first ``checksum_maps`` blocks
+    (CRC32C is pure Python, a few MB/s).  Every fetched byte equal to the
+    written ones."""
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import MemoryBlock, ShuffleBlockId
+    from sparkucx_tpu_torch.ops import block_kernels
+    from sparkucx_tpu_torch.transport.peer import PeerTransport
+
+    lengths, blocks, host, starts = data
+    mappers, reducers = lengths.shape
+    total_rows = int((-(-lengths // ROW)).sum())
+    payload = int(lengths.sum())
+    base = dict(block_alignment=ROW, staging_capacity_per_executor=total_rows * ROW, device_staging=True,
+                max_blocks_per_request=mappers)
+    server = PeerTransport(TpuShuffleConf(**base), executor_id=0, device=device)
+    addr = server.init()
+    out = {"payload_gb": payload / 1e9, "blocks": int(mappers * reducers)}
+    try:
+        server.store.create_shuffle(0, mappers, reducers)
+        for m in range(mappers):
+            w = server.store.map_writer(0, m)
+            for r in range(reducers):
+                w.write_partition_device(r, blocks[m][r], length=int(lengths[m, r]))
+            w.commit()
+        block_kernels.block_scatter.launches = block_kernels.block_gather.launches = 0
+        _, out["seal_s"] = wall(lambda: server.store.seal(0))
+        out["seal_launches"] = {"K1": block_kernels.block_gather.launches, "K2": block_kernels.block_scatter.launches}
+        assert out["seal_launches"] == {"K1": 0, "K2": 1}, out["seal_launches"]
+        bufs = [MemoryBlock(np.zeros(max(1, int(lengths[m].max())), np.uint8), size=max(1, int(lengths[m].max())))
+                for m in range(mappers)]
+
+        def fetch_all(client, maps=mappers, rs=range(reducers)):
+            nbytes = 0
+            for r in rs:
+                for b in bufs[:maps]:
+                    b.size = b.data.size  # a fetch leaves the block's size behind
+                reqs = client.fetch_blocks_by_block_ids(0, [ShuffleBlockId(0, m, r) for m in range(maps)],
+                                                        bufs[:maps], [None] * maps)
+                deadline = time.monotonic() + 120
+                while not all(q.completed() for q in reqs):
+                    client.progress()
+                    client.wait_for_activity(0.002)
+                    assert time.monotonic() < deadline, f"reducer {r}: fetch timed out"
+                got = []
+                for q, b in zip(reqs, bufs[:maps]):
+                    res = q.wait(1)
+                    assert res.status.name == "SUCCESS", f"reducer {r}: {res.error}"
+                    got.append(b.host_view()[: b.size].tobytes())
+                nbytes += _check_batch(got, lengths, host, starts, r)
+            return nbytes
+
+        for streams, checksum in ((1, False), (4, False), (4, True)):
+            conf = TpuShuffleConf(**base, wire_streams=streams, wire_checksum=checksum)
+            client = PeerTransport(conf, executor_id=1, device=device)
+            if checksum:  # the server decides whether chunk frames carry a CRC
+                checked = PeerTransport(conf, executor_id=0, store=server.store)
+                client.add_executor(0, checked.init())
+            else:
+                client.add_executor(0, addr)
+            key = f"streams{streams}" + ("_checksum" if checksum else "")
+            try:
+                if checksum:
+                    try:
+                        nbytes, secs = wall(lambda: fetch_all(client, maps=min(checksum_maps, mappers), rs=range(1)))
+                    finally:
+                        checked.server.close()
+                    out[key] = {"gb": nbytes / 1e9, "s": secs, "gbps": nbytes / 1e9 / secs, "blocks": min(checksum_maps, mappers)}
+                    continue
+                block_kernels.block_gather.launches = 0
+                nbytes, secs = wall(lambda: fetch_all(client))
+                assert nbytes == payload
+                row = {"gb": nbytes / 1e9, "s": secs, "gbps": nbytes / 1e9 / secs,
+                       "launches": {"K1": block_kernels.block_gather.launches}}
+                # a request is served on the thread of the lane it came in on: the counts are exact
+                assert row["launches"] == {"K1": reducers}, f"K1 once a fetch batch: {row['launches']}"
+                if streams == 1:
+                    wrappers, restore = holding(held_kernels(("K1",)), keep_last=True)
+                    try:
+                        assert fetch_all(client) == payload
+                    finally:
+                        restore()
+                    held = wrappers["K1"]
+                    assert held.launches == held.held_launches == held.held == reducers
+                    row["held_calls"] = held.held
+                    out["k1_serve_batch"] = check_k1_calls(device, "the peer server's serve batch", [held.last[0][:5]])
+                lanes = client.wire_lane_stats()
+                row["syscalls_per_mb"] = sum(x["rx_syscalls"] for x in lanes) / max(sum(x["rx_bytes"] for x in lanes) / 1e6, 1e-9)
+                row["p99_frame_stall_ms"] = max(x["rx_stall_p99_ns"] for x in lanes) / 1e6
+                out[key] = row
+            finally:
+                client.close()
+    finally:
+        server.close()
+    log(f"  peer to peer, device-staged: {out['payload_gb']:.3f} GB in {out['blocks']} blocks, seal "
+        f"{out['seal_s'] * 1e3:.2f} ms ({out['seal_launches']}); fetch streams 1 {out['streams1']['gbps']:.3f} GB/s "
+        f"(K1 {out['streams1']['launches']['K1']}, one a batch; every K1 call of a second run held: "
+        f"{out['streams1']['held_calls']}), streams 4 {out['streams4']['gbps']:.3f} GB/s "
+        f"(K1 {out['streams4']['launches']['K1']}); checksum on, streams 4, "
+        f"{out['streams4_checksum']['blocks']} blocks: {out['streams4_checksum']['gbps'] * 1e3:.2f} MB/s; "
+        "every byte equal to the written ones")
+    return out
+
+
+def cli_wire(device) -> dict:
+    """Phase 23 (c): ``python -m sparkucx_tpu_torch.perf.benchmark wire`` at
+    the JAX mode's measurement defaults (8 blocks of 32 MiB, streams 1, 2, 4,
+    5 iterations) through ``main``, then a ``server`` process on an
+    ephemeral port and a ``client`` through ``main`` fetching its blocks."""
+    import contextlib
+    import io
+
+    from sparkucx_tpu_torch.perf import benchmark
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        assert benchmark.main(["wire", "-n", "8", "-s", "32m", "-i", "5", "--streams", "1,2,4"]) == 0
+    lines = printed.getvalue().splitlines()
+    wire = {}
+    for ln in lines:
+        m = re.match(r"wire streams (\d+): ([\d.]+) GB/s, ([\d.]+) syscalls/MB, p99 frame stall ([\d.]+) ms", ln)
+        if m:
+            wire[int(m.group(1))] = {"gbps": float(m.group(2)), "syscalls_per_mb": float(m.group(3)),
+                                     "p99_frame_stall_ms": float(m.group(4))}
+            log(f"  {ln}")
+    assert sorted(wire) == [1, 2, 4], lines
+    server = subprocess.Popen(
+        [sys.executable, "-m", "sparkucx_tpu_torch.perf.benchmark", "server", "-a", "127.0.0.1:0", "-n", "8", "-s", "32m"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE, text=True,
+    )
+    try:
+        line = server.stdout.readline().strip()
+        m = re.fullmatch(r"serving 8 x 33554432 B blocks on (127\.0\.0\.1:\d+)", line)
+        assert m, f"the server printed {line!r}"
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            assert benchmark.main(["client", "-a", m.group(1), "-n", "8", "-s", "32m", "-i", "3", "-o", "8"]) == 0
+        client_lines = printed.getvalue().splitlines()
+    finally:
+        server.send_signal(__import__("signal").SIGINT)
+        try:
+            server.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait(timeout=60)
+    assert len(client_lines) == 3 and all("268435456 bytes" in ln for ln in client_lines), client_lines
+    for ln in client_lines:
+        log(f"  client: {ln}")
+    best = max(float(re.search(r"\(([\d.]+) GB/s\)", ln).group(1)) for ln in client_lines)
+    return {"wire": wire, "client_gbps": best, "server": line}
+
+
+def daemon_write_costs(data, alignment: int = ROW) -> dict:
+    """Where a daemon write's host time goes: each leg alone, on one thread,
+    over the same blocks — the JSON control header (``json.dumps`` by the
+    client, ``json.loads`` by the daemon), the socket (every WritePartition
+    frame as the client builds it, through a loopback socket pair and read
+    back with the daemon's ``recv_exact``), and the store
+    (``MapWriter.write_partition`` into host staging)."""
+    import json as _json
+    import socket
+    import struct
+
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.shuffle.daemon import DaemonOp, _frame
+    from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore
+    from sparkucx_tpu_torch.transport.peer import recv_exact
+
+    lengths, _, host, starts = data
+    mappers, reducers = lengths.shape
+    cells = [(m, r) for m in range(mappers) for r in range(reducers) if lengths[m, r]]
+
+    def view(m, r):
+        return memoryview(host[m])[int(starts[m, r]) : int(starts[m, r]) + int(lengths[m, r])]
+
+    t0 = time.perf_counter()
+    for m, r in cells:
+        _json.loads(_json.dumps({"writer": m, "reduce_id": r}).encode())
+    json_s = time.perf_counter() - t0
+    a, b = socket.socketpair()
+    try:
+        def send():
+            for m, r in cells:
+                a.sendall(_frame(DaemonOp.WRITE_PARTITION, {"writer": m, "reduce_id": r}, view(m, r)))
+
+        def receive():
+            for _ in cells:
+                _, hlen, blen = struct.unpack("<IQQ", recv_exact(b, 20))
+                recv_exact(b, hlen)
+                recv_exact(b, blen)
+
+        t0 = time.perf_counter()
+        sender = threading.Thread(target=send)
+        sender.start()
+        receive()
+        sender.join()
+        socket_s = time.perf_counter() - t0
+    finally:
+        a.close()
+        b.close()
+    padded = int((-(-lengths // alignment) * alignment).sum())
+    store = HbmBlockStore(TpuShuffleConf(block_alignment=alignment, staging_capacity_per_executor=padded))
+    try:
+        store.create_shuffle(0, mappers, reducers)
+        t0 = time.perf_counter()
+        for m in range(mappers):
+            w = store.map_writer(0, m)
+            for r in range(reducers):
+                w.write_partition(r, view(m, r))
+            w.commit()
+        store_s = time.perf_counter() - t0
+    finally:
+        store.close()
+    gb = int(lengths.sum()) / 1e9
+    log(f"  a daemon write's legs alone, one thread, {gb:.3f} GB in {len(cells)} frames: JSON headers "
+        f"{json_s:.3f} s, the socket (frames built, sent, read back) {socket_s:.3f} s, the store's staging "
+        f"copies {store_s:.3f} s")
+    return {"gb": gb, "frames": len(cells), "json_s": json_s, "socket_s": socket_s, "store_s": store_s}
+
+
+def serving_plane(device, seed: int, mappers: int = 200, reducers: int = 200, kv_pairs: int = 1000,
+                  value_bytes: int = 25000, daemon_kv_pairs: int = 250, cli: bool = True) -> dict:
+    """Phase 23: the Spark-facing daemon and the peer wire on the card, at
+    GroupByTest's big gate: numKVPairs cut to 1000 for the peers (as in
+    phase 3, ~5 GB) and to ``daemon_kv_pairs`` for the daemon, whose host
+    route (a JSON frame, an ack and three host copies a block) moves ~0.27
+    GB/s: the four daemon runs at 5 GB took 117 s of the phase."""
+    data = groupby_host_blocks(device, mappers, reducers, daemon_kv_pairs, value_bytes, seed)
+    out = {"daemon": {}}
+    for n, mode in ((1, "array"), (1, "device"), (4, "array"), (4, "device")):
+        out["daemon"][f"n{n}_{mode}"] = daemon_groupby(device, n, mode, data)
+    out["daemon_write_costs"] = daemon_write_costs(data)
+    del data
+    out["fixtures"] = daemon_fixtures(device)
+    data = groupby_host_blocks(device, mappers, reducers, kv_pairs, value_bytes, seed)
+    out["peer"] = peer_device_staged(device, data)
+    del data
+    torch.cuda.empty_cache()
+    if cli:
+        out["cli"] = cli_wire(device)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=SEED, help="seed of the TPC-H data and the graphs (phases 11-12, 18-19)")
+    parser.add_argument("--only-serving-plane", action="store_true",
+                        help="run phase 1 and phase 23 only (a quick check of the serving plane; no kernel table)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available — this script needs one NVIDIA GPU", file=sys.stderr)
@@ -3302,6 +3816,11 @@ def main() -> int:
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+
+    if args.only_serving_plane:
+        log("phase 23: the shuffle daemon and the peer wire on the card (GroupByTest's big gate)")
+        log(json.dumps({"serving_plane": serving_plane(device, args.seed + 6)}))
+        return 0
 
     log("phase 2: kernels against their plain versions")
     check_kernels(device)
@@ -3417,7 +3936,13 @@ def main() -> int:
     log(json.dumps({"tpch_q18_sf10": q18, "sparktc": tc}))
     log(json.dumps({"benchmark_modes": {k: {f: v for f, v in m.items() if f != "lines"} for k, m in modes.items()}}))
     log(json.dumps({"quantized_exchange": quantized}))
+    log("phase 23: the shuffle daemon and the peer wire on the card (GroupByTest's big gate)")
+    t0 = time.perf_counter()
+    serving = serving_plane(device, args.seed + 6)
+    log(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+
     log(json.dumps({"walkthroughs": walks, "spilling_reduce_side": spilled}))
+    log(json.dumps({"serving_plane": serving}))
     log(card_line())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")

@@ -1,11 +1,54 @@
-"""Wire-protocol message ids, frame format and the map-side commit record.
+"""Wire-protocol message ids and frame formats (control/data plane RPC schema).
 
-Port of ``sparkucx_tpu/core/definitions.py``, cut to what the staged-store path
-needs: the message ids and base frame of ``shuffle/ucx/Definitions.scala:22-29``,
-the FetchBlockReq header, and ``MapperInfo``.  ``MapperInfo.pack()`` blobs are
-byte-identical to the JAX package's, so a commit written by either package
-decodes in the other.  The striped-wire, replication, membership, trace and
-hot-set frames arrive with the peer wire plane.
+Port of ``sparkucx_tpu/core/definitions.py`` (a verbatim copy): every frame
+packs byte-identical to the JAX package's, so a port executor and a JAX
+executor speak one wire, and ``MapperInfo.pack()`` blobs decode in either.
+
+Counterpart of ``shuffle/ucx/Definitions.scala:22-29`` — the 5 UCX Active-Message ids
+the reference speaks with its DPU daemon.  Here the same schema is carried over TCP
+sockets (the peer/block-server path and the JVM<->Python plugin shim both speak it):
+
+====================  ==  =======================================================
+InitExecutorReq        0  executor handshake: staged-store context blob
+InitExecutorAck        1  handshake ack: remote store connected
+MapperInfo             2  map-side commit: {numPartitions, mapId, (offset,len)*R}
+FetchBlockReq          3  fetch one (shuffleId, mapId, reduceId) block
+FetchBlockReqAck       4  fetch reply: block bytes (eager) or rndv handle
+FetchBlockChunk        5  striped-wire continuation: one chunk of a streaming
+                          fetch reply (tag, block, seq, offset) + payload
+WireHello              6  striped-wire lane handshake: (group, lane, nlanes,
+                          chunk_bytes) — joins this connection to a stripe group
+ReplicaPut             7  neighbor replication: one sealed round's host snapshot
+                          {shuffle, srcExecutor, round, (map,reduce,len)*N} + body
+ReplicaAck             8  replication ack: echoes (shuffle, srcExecutor, round)
+MemberSuspect          9  membership: (epoch, executor, observer) — the observer
+                          saw a wire error / timeout naming this executor
+MemberRejoin          10  membership: (epoch, executor, observer) — the executor
+                          came back; the full mesh returns next shuffle epoch
+TracePull             11  observability: pull the peer's trace-event ring —
+                          request (tag), reply body = JSON event buffer
+MetricsPull           12  observability: pull the peer's metrics snapshot —
+                          request (tag), reply body = Prometheus text
+ServerBusy            13  load shedding: the server's accept backlog is full
+                          (``server.acceptBacklog``) — sent best-effort before
+                          closing the shed connection; headerless, bodyless.
+                          Clients surface it as retryable ResourceExhaustedError
+HotSetPull            14  popularity-aware serving: pull the peer's hot-set
+                          advertisement — request (tag), reply body = packed
+                          {shuffle: [holder executor ids]} table (hot shuffles
+                          whose replica sets were widened beyond
+                          ``replication.factor``)
+====================  ==  =======================================================
+
+Ids 5-6 extend the reference schema for the striped zero-copy wire path: a
+fetch reply in striped mode is a size *manifest* (a FetchBlockReqAck frame with
+``body_len == 0``) plus ``FetchBlockChunk`` frames carrying fixed-size slices
+of the reply body round-robin across the group's lanes.  Chunks address their
+destination directly — ``(tag, block index, offset within block)`` — so lanes
+need no cross-lane ordering and the manifest may arrive before, between, or
+after the chunks; the fetch completes when the manifest has arrived AND every
+payload byte has been scattered.  ``wire.streams = 1`` never emits ids 5-6:
+the single-lane wire stays byte-identical to the pre-striping protocol.
 
 Frame format (all little-endian):  ``<u32 am_id> <u64 header_len> <u64 body_len>
 <header bytes> <body bytes>`` — the (header, body) split mirrors jucx's
@@ -17,11 +60,11 @@ from __future__ import annotations
 import enum
 import struct
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 class AmId(enum.IntEnum):
-    """Definitions.scala:22-29, with the JAX package's extension ids."""
+    """Definitions.scala:22-29."""
 
     INIT_EXECUTOR_REQ = 0
     INIT_EXECUTOR_ACK = 1
@@ -43,6 +86,10 @@ class AmId(enum.IntEnum):
 _FRAME = struct.Struct("<IQQ")
 FRAME_HEADER_SIZE = _FRAME.size
 
+#: Frame size ceiling shared by every frame-reading loop (peer plane + daemon):
+#: a corrupt/hostile header claiming a huge length is dropped, never streamed.
+MAX_FRAME_BYTES = 1 << 31
+
 #: FetchBlockReq header: (shuffleId, mapId, reduceId) — 12 bytes, matching the
 #: reference's header layout (UcxWorkerWrapper.scala:96-126).
 _FETCH_REQ = struct.Struct("<iii")
@@ -50,6 +97,12 @@ _FETCH_REQ = struct.Struct("<iii")
 
 def pack_frame(am_id: AmId, header: bytes = b"", body: bytes = b"") -> bytes:
     return _FRAME.pack(int(am_id), len(header), len(body)) + header + body
+
+
+def pack_frame_prefix(am_id: AmId, header: bytes, body_len: int) -> bytes:
+    """Frame prefix announcing a ``body_len``-byte body that the caller sends
+    separately (scatter-send of a large zero-copy reply buffer)."""
+    return _FRAME.pack(int(am_id), len(header), body_len) + header
 
 
 def unpack_frame_header(data: bytes) -> Tuple[AmId, int, int]:
@@ -63,6 +116,224 @@ def pack_fetch_req(shuffle_id: int, map_id: int, reduce_id: int) -> bytes:
 
 def unpack_fetch_req(data: bytes) -> Tuple[int, int, int]:
     return _FETCH_REQ.unpack_from(data)
+
+
+#: FetchBlockChunk header: which batch (tag), which block of the batch, the
+#: global chunk sequence number (stripe lane = seq % nlanes; telemetry and
+#: interleave testing), and the chunk's offset *within its block* — the chunk
+#: is self-addressing, so lanes never need cross-lane ordering.
+_CHUNK_HDR = struct.Struct("<QIIQ")
+CHUNK_HEADER_SIZE = _CHUNK_HDR.size
+
+#: WireHello header: stripe-group id (client-random u64), this connection's
+#: lane index, the group's lane count, and the chunk frame size the client
+#: expects replies striped into.
+_HELLO = struct.Struct("<QIIQ")
+
+
+def pack_chunk_hdr(tag: int, block: int, seq: int, offset: int) -> bytes:
+    return _CHUNK_HDR.pack(tag, block, seq, offset)
+
+
+def unpack_chunk_hdr(data) -> Tuple[int, int, int, int]:
+    return _CHUNK_HDR.unpack_from(data)
+
+
+#: FetchBlockChunk / ReplicaPut header extensions, detected by header length
+#: on the receiving side so mixed-config peers interoperate (same mechanism as
+#: the crc32c trailer, config.py ``wire_checksum``).  Chunk header layouts:
+#:
+#: ====================  =====================================================
+#: 24 (base)             plain chunk, payload = raw slice
+#: 28 (base+crc)         + u32 crc32c trailer over the WIRE payload
+#: 32 (base+codec)       + (u32 codec_id, u32 raw_len): payload is the page
+#:                       encoded under codec_id (utils/pagecodec.py) and
+#:                       expands to raw_len bytes at (block, offset)
+#: 36 (base+codec+crc)   codec ext first, crc trailer LAST — the crc covers
+#:                       the ENCODED payload, so corruption is detected
+#:                       before the decoder ever parses the page
+#: ====================  =====================================================
+#:
+#: ReplicaPut reuses the same two extensions after its entry table, same
+#: order (codec ext, then crc), detected by the residue of
+#: ``len(header) - REPLICA_HEADER_SIZE`` modulo ``REPLICA_ENTRY_SIZE``
+#: (entries are 16 B; residues 0/4/8/12 = plain/crc/codec/codec+crc).  The
+#: 18-byte trace-context extension (``_REPLICA_TRACE_EXT``, obs plane) — when
+#: present — is appended LAST, after the crc trailer, shifting every residue
+#: by 2 (residues 2/6/10/14); receivers strip it first, then dispatch the
+#: remaining residue through the table above unchanged.
+#: When a server's codec is on, EVERY chunk carries the codec ext —
+#: unprofitable pages ship ``codec_id = 0`` (raw) with ``raw_len`` equal to
+#: the payload length, keeping the header length uniform per reply.
+_CHUNK_CODEC = struct.Struct("<II")
+CHUNK_CODEC_EXT_SIZE = _CHUNK_CODEC.size
+
+
+def pack_chunk_codec_ext(codec_id: int, raw_len: int) -> bytes:
+    return _CHUNK_CODEC.pack(codec_id, raw_len)
+
+
+def unpack_chunk_codec_ext(data, offset: int = 0) -> Tuple[int, int]:
+    return _CHUNK_CODEC.unpack_from(data, offset)
+
+
+def pack_wire_hello(group: int, lane: int, nlanes: int, chunk_bytes: int) -> bytes:
+    return _HELLO.pack(group, lane, nlanes, chunk_bytes)
+
+
+def unpack_wire_hello(data) -> Tuple[int, int, int, int]:
+    return _HELLO.unpack_from(data)
+
+
+#: ReplicaPut header prefix: (shuffle_id, src_executor, round, num_blocks);
+#: followed by num_blocks ``_REPLICA_ENT`` entries (map_id, reduce_id, length)
+#: describing the body — the concatenated unpadded block payloads in table
+#: order.  ReplicaAck reuses the prefix with num_blocks = 0 and no body.
+_REPLICA_HDR = struct.Struct("<iiiI")
+_REPLICA_ENT = struct.Struct("<iiq")
+REPLICA_HEADER_SIZE = _REPLICA_HDR.size
+REPLICA_ENTRY_SIZE = _REPLICA_ENT.size
+
+
+def pack_replica_put(
+    shuffle_id: int, src_executor: int, round_idx: int, entries: List[Tuple[int, int, int]]
+) -> bytes:
+    """Pack a ReplicaPut header; ``entries`` = (map_id, reduce_id, length)."""
+    out = bytearray(_REPLICA_HDR.pack(shuffle_id, src_executor, round_idx, len(entries)))
+    for map_id, reduce_id, length in entries:
+        out += _REPLICA_ENT.pack(map_id, reduce_id, length)
+    return bytes(out)
+
+
+def unpack_replica_put(data) -> Tuple[int, int, int, List[Tuple[int, int, int]]]:
+    sid, src, rnd, n = _REPLICA_HDR.unpack_from(data)
+    entries: List[Tuple[int, int, int]] = []
+    pos = _REPLICA_HDR.size
+    for _ in range(n):
+        entries.append(_REPLICA_ENT.unpack_from(data, pos))
+        pos += _REPLICA_ENT.size
+    return sid, src, rnd, entries
+
+
+def pack_replica_ack(shuffle_id: int, src_executor: int, round_idx: int) -> bytes:
+    return _REPLICA_HDR.pack(shuffle_id, src_executor, round_idx, 0)
+
+
+def unpack_replica_ack(data) -> Tuple[int, int, int]:
+    sid, src, rnd, _ = _REPLICA_HDR.unpack_from(data)
+    return sid, src, rnd
+
+
+#: Distributed-trace context extensions (obs plane, ``obs.traceContext``).
+#: Self-describing trailers in the same family as the tenant app-id ext
+#: (transport/peer.py ``_APP``): default-off keeps every golden frame
+#: byte-identical, and old receivers that don't know the ext still parse the
+#: base layout because they validate exact lengths / residues.
+#:
+#: FetchBlockReq carries a 20-byte ``<IQQ>`` trailer (magic, trace_id,
+#: span_id) appended LAST — after the optional app-id ext.  The magic
+#: disambiguates it from an app-id ext whose utf-8 payload happens to be
+#: 16 bytes: ``unpack_fetch_req_app_id`` requires the app ext to account for
+#: the EXACT remaining length, so a trailing trace ext simply reads as "not
+#: an app ext" to pre-obs servers.
+#:
+#: ReplicaPut carries an 18-byte ``<HQQ>`` trailer (u16 magic, trace_id,
+#: span_id) appended LAST — after the crc trailer — giving header residues
+#: {2, 6, 10, 14} mod 16, disjoint from the crc/codec residues {0, 4, 8, 12}:
+#: receivers detect ``residue % 4 == 2``, strip the last 18 bytes, and run
+#: the existing codec/crc dispatch on what remains.
+TRACE_EXT_MAGIC = 0x54524143  # "TRAC"
+REPLICA_TRACE_MAGIC = 0x5443  # "TC"
+_TRACE_EXT = struct.Struct("<IQQ")
+_REPLICA_TRACE_EXT = struct.Struct("<HQQ")
+TRACE_EXT_SIZE = _TRACE_EXT.size
+REPLICA_TRACE_EXT_SIZE = _REPLICA_TRACE_EXT.size
+
+
+def pack_trace_ext(trace_id: int, span_id: int) -> bytes:
+    """FetchBlockReq trace-context trailer."""
+    return _TRACE_EXT.pack(TRACE_EXT_MAGIC, trace_id, span_id)
+
+
+def unpack_trace_ext(data) -> Optional[Tuple[int, int]]:
+    """(trace_id, span_id) when ``data`` ends in a trace ext, else None."""
+    if len(data) < TRACE_EXT_SIZE:
+        return None
+    magic, trace_id, span_id = _TRACE_EXT.unpack_from(data, len(data) - TRACE_EXT_SIZE)
+    if magic != TRACE_EXT_MAGIC:
+        return None
+    return trace_id, span_id
+
+
+def pack_replica_trace_ext(trace_id: int, span_id: int) -> bytes:
+    """ReplicaPut trace-context trailer (appended after the crc trailer)."""
+    return _REPLICA_TRACE_EXT.pack(REPLICA_TRACE_MAGIC, trace_id, span_id)
+
+
+def unpack_replica_trace_ext(data) -> Optional[Tuple[int, int]]:
+    """(trace_id, span_id) when ``data`` ends in a ReplicaPut trace ext."""
+    if len(data) < REPLICA_TRACE_EXT_SIZE:
+        return None
+    magic, trace_id, span_id = _REPLICA_TRACE_EXT.unpack_from(
+        data, len(data) - REPLICA_TRACE_EXT_SIZE
+    )
+    if magic != REPLICA_TRACE_MAGIC:
+        return None
+    return trace_id, span_id
+
+
+#: HotSetPull reply body (popularity-aware serving): the advertised hot-set
+#: table, ``{shuffle_id: [holder executor ids]}``.  Layout: a ``_HOT_HDR``
+#: shuffle count, then per shuffle a ``_HOT_ENT`` (shuffle_id, num_holders)
+#: followed by num_holders ``_HOT_EID`` executor ids.  Requests reuse the
+#: obs-plane pull shape (u64 tag header, empty body) so the reply can be
+#: parked on the tag like TracePull/MetricsPull.  An empty table (count 0)
+#: is a valid reply — nothing is hot.
+_HOT_HDR = struct.Struct("<I")
+_HOT_ENT = struct.Struct("<iI")
+_HOT_EID = struct.Struct("<i")
+
+
+def pack_hot_set(hot: Dict[int, List[int]]) -> bytes:
+    """Pack the hot-set advertisement table (sorted for determinism)."""
+    out = bytearray(_HOT_HDR.pack(len(hot)))
+    for sid in sorted(hot):
+        holders = sorted(hot[sid])
+        out += _HOT_ENT.pack(sid, len(holders))
+        for eid in holders:
+            out += _HOT_EID.pack(eid)
+    return bytes(out)
+
+
+def unpack_hot_set(data) -> Dict[int, List[int]]:
+    (n,) = _HOT_HDR.unpack_from(data)
+    pos = _HOT_HDR.size
+    out: Dict[int, List[int]] = {}
+    for _ in range(n):
+        sid, nh = _HOT_ENT.unpack_from(data, pos)
+        pos += _HOT_ENT.size
+        holders: List[int] = []
+        for _ in range(nh):
+            holders.append(_HOT_EID.unpack_from(data, pos)[0])
+            pos += _HOT_EID.size
+        out[sid] = holders
+    return out
+
+
+#: Membership frame header (MemberSuspect / MemberRejoin): the observer's
+#: membership epoch AFTER applying the event, the subject executor, and the
+#: observing executor.  Bodyless — membership is metadata, never payload.
+#: Receivers apply the event to their local membership view; epoch is
+#: advisory (views converge by union of suspects, not by epoch ordering).
+_MEMBER_HDR = struct.Struct("<Qii")
+
+
+def pack_member_event(epoch: int, executor_id: int, observer_id: int) -> bytes:
+    return _MEMBER_HDR.pack(epoch, executor_id, observer_id)
+
+
+def unpack_member_event(data) -> Tuple[int, int, int]:
+    return _MEMBER_HDR.unpack_from(data)
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,302 @@
+"""Unified metrics registry with Prometheus text exposition.
+
+Copy of ``sparkucx_tpu/obs/metrics.py``: the exposition keeps the
+``sparkucx_tpu`` metric prefix, so one scrape config reads both packages and
+the same registrations give the same Prometheus text byte for byte.
+
+Before this plane, telemetry lived in per-subsystem accessors an operator had
+to know by name: ``StatsAggregator`` summaries, ``wire_lane_stats()``,
+``compress_stats()``, ``replica_stats``, ``elastic_stats``,
+``eviction_stats()``, per-reader failover counters.  The registry inverts the
+dependency: each subsystem registers a *provider* (a zero-arg callable
+returning :class:`MetricSample` rows), and one ``snapshot()`` walks them all.
+Exposition is Prometheus text format 0.0.4, served three ways:
+
+* ``registry.prometheus_text()`` locally,
+* over the peer wire via the METRICS_PULL Active Message (every executor's
+  BlockServer answers with its registry's text — ``TpuShuffleCluster
+  .metrics_text()`` concatenates the mesh),
+* an optional local HTTP scrape endpoint (:func:`start_http_server`, behind
+  ``spark.shuffle.tpu.obs.metricsPort``; default 0 = off).
+
+Naming scheme (docs/OBSERVABILITY.md): ``sparkucx_tpu_<family>_<metric>``
+with snake_case metric names and labels for dimensions (``executor``,
+``lane``, ``kind``, ``app``...).  Families mirror the subsystems: ``wire``,
+``replica``, ``compress``, ``elastic``, ``eviction``, ``store``, ``tenant``,
+``reader``, ``ops``, ``obs`` (the plane's own health: ring drops).
+
+Lock discipline: ``_lock`` guards only the provider list and is never held
+while a provider runs — providers take their subsystems' own locks (store
+lock, ``_tag_lock``, ``_compress_lock``...), so keeping the registry lock a
+leaf keeps the whole-program lock graph acyclic (analysis/lockgraph).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
+
+PREFIX = "sparkucx_tpu"
+
+#: A provider returns an iterable of samples; registered per subsystem.
+Provider = Callable[[], Iterable["MetricSample"]]
+
+
+@dataclass(frozen=True)
+class MetricSample:
+    """One exposition row: ``<prefix>_<family>_<name>{labels} value``."""
+
+    family: str  # subsystem family: wire / replica / elastic / ...
+    name: str  # snake_case metric name within the family
+    value: float
+    labels: Tuple[Tuple[str, str], ...] = ()
+    kind: str = "gauge"  # prometheus TYPE: "counter" | "gauge"
+    help: str = ""
+
+    @property
+    def full_name(self) -> str:
+        return f"{PREFIX}_{self.family}_{self.name}"
+
+
+def sample(
+    family: str,
+    name: str,
+    value,
+    labels: Optional[Mapping[str, object]] = None,
+    kind: str = "gauge",
+    help: str = "",
+) -> MetricSample:
+    """Convenience constructor: dict labels, any numeric value."""
+    lab = tuple(sorted((str(k), str(v)) for k, v in (labels or {}).items()))
+    return MetricSample(family=family, name=name, value=float(value), labels=lab, kind=kind, help=help)
+
+
+class MetricsRegistry:
+    """Provider registry + snapshot/exposition.  One per executor (the
+    loopback cluster builds one per virtual executor so METRICS_PULL views
+    stay distinct); providers are closures over their subsystem."""
+
+    def __init__(self, executor_id: Optional[int] = None) -> None:
+        self.executor_id = executor_id
+        self._lock = threading.Lock()
+        self._providers: List[Tuple[str, Provider]] = []  #: guarded by self._lock
+        self._provider_errors = 0  #: guarded by self._lock
+
+    def register(self, name: str, provider: Provider) -> None:
+        """Add a named provider; re-registering a name replaces it (transports
+        re-init across shuffles and must not double-report)."""
+        with self._lock:
+            self._providers = [(n, p) for n, p in self._providers if n != name]
+            self._providers.append((name, provider))
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._providers = [(n, p) for n, p in self._providers if n != name]
+
+    def provider_names(self) -> List[str]:
+        with self._lock:
+            return [n for n, _ in self._providers]
+
+    def snapshot(self) -> List[MetricSample]:
+        """Walk every provider OUTSIDE the registry lock (providers take
+        subsystem locks; the registry lock stays a leaf).  A provider that
+        raises is skipped and counted — scraping must never take a serving
+        plane down."""
+        with self._lock:
+            providers = list(self._providers)
+        out: List[MetricSample] = []
+        errors = 0
+        for name, provider in providers:
+            try:
+                out.extend(provider())
+            except Exception:
+                errors += 1
+        if errors:
+            with self._lock:
+                self._provider_errors += errors
+        with self._lock:
+            total_errors = self._provider_errors
+        out.append(
+            sample(
+                "obs",
+                "provider_errors_total",
+                total_errors,
+                kind="counter",
+                help="metric providers that raised during snapshot()",
+            )
+        )
+        if self.executor_id is not None:
+            out = [
+                MetricSample(
+                    family=s.family,
+                    name=s.name,
+                    value=s.value,
+                    labels=_with_executor(s.labels, self.executor_id),
+                    kind=s.kind,
+                    help=s.help,
+                )
+                for s in out
+            ]
+        return out
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format 0.0.4 — deterministic order
+        (grouped by metric name, label-sorted) so goldens can pin it."""
+        samples = self.snapshot()
+        by_name: Dict[str, List[MetricSample]] = {}
+        for s in samples:
+            by_name.setdefault(s.full_name, []).append(s)
+        lines: List[str] = []
+        for full_name in sorted(by_name):
+            rows = by_name[full_name]
+            head = rows[0]
+            if head.help:
+                lines.append(f"# HELP {full_name} {head.help}")
+            lines.append(f"# TYPE {full_name} {head.kind}")
+            for s in sorted(rows, key=lambda r: r.labels):
+                if s.labels:
+                    labels = ",".join(f'{k}="{_escape(v)}"' for k, v in s.labels)
+                    lines.append(f"{full_name}{{{labels}}} {_fmt(s.value)}")
+                else:
+                    lines.append(f"{full_name} {_fmt(s.value)}")
+        return "\n".join(lines) + "\n"
+
+
+def _with_executor(labels: Tuple[Tuple[str, str], ...], eid: int) -> Tuple[Tuple[str, str], ...]:
+    if any(k == "executor" for k, _ in labels):
+        return labels
+    return tuple(sorted(labels + (("executor", str(eid)),)))
+
+
+def _escape(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt(value: float) -> str:
+    # counters and byte totals read better as integers; keep floats for rates
+    return str(int(value)) if float(value).is_integer() else repr(value)
+
+
+# -- stock providers -------------------------------------------------------
+# Adapters from the pre-obs accessor shapes to sample rows, so subsystems
+# register one closure instead of re-deriving the naming scheme.
+
+
+def stats_aggregator_provider(agg) -> Provider:
+    """Adapt a utils/stats.py StatsAggregator: per-kind op summaries land as
+    ``ops_*`` rows, free-form counters keep their names."""
+
+    def provide() -> List[MetricSample]:
+        out: List[MetricSample] = []
+        for kind in agg.kinds():
+            s = agg.summary(kind)
+            lab = {"kind": kind}
+            out.append(sample("ops", "count_total", s.ops, lab, kind="counter"))
+            out.append(sample("ops", "bytes_total", s.bytes, lab, kind="counter"))
+            out.append(sample("ops", "total_ns_total", s.total_ns, lab, kind="counter"))
+            if s.p50_ns is not None:
+                out.append(sample("ops", "latency_p50_ns", s.p50_ns, lab))
+            if s.p99_ns is not None:
+                out.append(sample("ops", "latency_p99_ns", s.p99_ns, lab))
+            if s.used_rows or s.padded_rows:
+                out.append(sample("ops", "used_rows_total", s.used_rows, lab, kind="counter"))
+                out.append(sample("ops", "padded_rows_total", s.padded_rows, lab, kind="counter"))
+            for cname, cval in agg.counters(kind).items():
+                out.append(sample("ops", f"{cname}_total", cval, lab, kind="counter"))
+        return out
+
+    return provide
+
+
+def counter_dict_provider(family: str, fn: Callable[[], Mapping[str, object]]) -> Provider:
+    """Adapt a flat ``{counter_name: value}`` accessor (replica_stats,
+    compress_snapshot, eviction_stats, elastic_stats...)."""
+
+    def provide() -> List[MetricSample]:
+        out: List[MetricSample] = []
+        for name, value in fn().items():
+            if isinstance(value, bool):
+                value = int(value)
+            if isinstance(value, (int, float)):
+                out.append(sample(family, name, value))
+        return out
+
+    return provide
+
+
+def wire_lane_provider(fn: Callable[[], Iterable[Mapping]]) -> Provider:
+    """Adapt ``PeerTransport.wire_lane_stats()`` (a list of per-lane dicts
+    with executor/slot/lane keys): the remote end and lane become labels."""
+
+    def provide() -> List[MetricSample]:
+        out: List[MetricSample] = []
+        for s in fn():
+            lab = {"peer": s["executor"], "slot": s["slot"], "lane": s["lane"]}
+            for name, value in s.items():
+                if name in ("executor", "slot", "lane"):
+                    continue
+                kind = "gauge" if name.endswith("p99_ns") else "counter"
+                suffix = "" if name.endswith("p99_ns") else "_total"
+                out.append(sample("wire", f"{name}{suffix}", value, lab, kind=kind))
+        return out
+
+    return provide
+
+
+def tracer_provider(tracer) -> Provider:
+    """The obs plane's own health: ring occupancy and drop count."""
+
+    def provide() -> List[MetricSample]:
+        return [
+            sample("obs", "trace_events", len(tracer.events)),
+            sample(
+                "obs",
+                "trace_dropped_total",
+                tracer.dropped,
+                kind="counter",
+                help="events evicted from the flight-recorder ring",
+            ),
+        ]
+
+    return provide
+
+
+# -- HTTP scrape endpoint --------------------------------------------------
+
+
+def start_http_server(registry: MetricsRegistry, port: int, host: str = "127.0.0.1"):
+    """Serve ``GET /metrics`` from a daemon thread; returns the server
+    (``.server_address``, ``.shutdown()``).  Port 0 asks the OS for a free
+    port — the conf knob's 0 means OFF and callers never pass it through."""
+    import http.server
+
+    class _Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 - BaseHTTPRequestHandler API
+            if self.path not in ("/metrics", "/"):
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = registry.prometheus_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):  # silence per-request stderr noise
+            pass
+
+    server = http.server.ThreadingHTTPServer((host, port), _Handler)
+    thread = threading.Thread(target=server.serve_forever, name="obs-metrics-http", daemon=True)
+    thread.start()
+    server.obs_thread = thread  # joined by close_http_server
+    return server
+
+
+def close_http_server(server) -> None:
+    server.shutdown()
+    server.server_close()
+    thread = getattr(server, "obs_thread", None)
+    if thread is not None:
+        thread.join(timeout=5)

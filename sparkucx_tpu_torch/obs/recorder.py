@@ -1,0 +1,193 @@
+"""Always-on flight recorder: postmortem capture for the fault paths.
+
+Copy of ``sparkucx_tpu/obs/recorder.py``.
+
+The recorder keeps the tracer's bounded ring warm (``Tracer.recording``) even
+when full tracing is off, so when a fault-tolerance path fires there is
+always a trace tail to look at.  On a trigger — any ``TransportError``
+construction (core/operation.py failure hooks), an elastic recovery
+(transport/tpu.py), or a chaos-harness fault (testing/faults.py) — it
+assembles a *postmortem bundle*:
+
+* the trace tail (the newest ``tail_events`` ring entries + drop counter),
+* a metrics snapshot (Prometheus text, when a registry is attached),
+* the membership epoch/suspect view (when a membership getter is attached),
+* the trigger's reason and free-form context.
+
+Bundles land in memory (``last_postmortem``, ``postmortems``) by default;
+``spark.shuffle.tpu.obs.postmortemDir`` additionally writes each bundle as a
+JSON file.  In-memory default matters: the test suite raises TransportError
+on purpose constantly, and a default-on file dump would spray the filesystem.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from typing import Callable, List, Optional
+
+from sparkucx_tpu_torch.core import operation as _operation
+from sparkucx_tpu_torch.testing import faults
+from sparkucx_tpu_torch.utils.trace import TRACER, Tracer
+
+#: Keep bundles bounded: the recorder is always on and chaos tests trigger
+#: hundreds of captures — only the newest N stay resident.
+MAX_BUNDLES = 16
+#: Trace-tail size per bundle: enough to see the failing exchange, small
+#: enough that capture on the error path stays cheap.
+TAIL_EVENTS = 256
+
+
+class FlightRecorder:
+    """One per executor-ish scope (the cluster keeps one for the whole
+    loopback mesh).  ``attach_*`` wire in the optional legs; ``install()``
+    hooks TransportError construction; ``close()`` unhooks."""
+
+    def __init__(
+        self,
+        tracer: Optional[Tracer] = None,
+        executor_id: Optional[int] = None,
+        postmortem_dir: Optional[str] = None,
+        ring_capacity: Optional[int] = None,
+        tail_events: int = TAIL_EVENTS,
+    ) -> None:
+        self.tracer = tracer if tracer is not None else TRACER
+        self.executor_id = executor_id
+        self.postmortem_dir = postmortem_dir
+        self.tail_events = tail_events
+        self._lock = threading.Lock()
+        self.postmortems: List[dict] = []  #: guarded by self._lock
+        self._captures = 0  #: guarded by self._lock
+        self._registry = None
+        self._membership: Optional[Callable[[], Optional[dict]]] = None
+        self._installed = False
+        self._capturing = threading.local()
+        if ring_capacity:
+            self.tracer.set_capacity(ring_capacity)
+        # the "always-on" half: recording survives tracing being disabled
+        self.tracer.recording = True
+
+    # -- wiring ------------------------------------------------------------
+
+    def attach_registry(self, registry) -> None:
+        self._registry = registry
+
+    def attach_membership(self, getter: Callable[[], Optional[dict]]) -> None:
+        """``getter`` returns ``{"epoch": int, "suspected": [...]}`` or None."""
+        self._membership = getter
+
+    def install(self) -> None:
+        """Register the TransportError failure hook and the chaos-harness
+        fault observer (idempotent)."""
+        if not self._installed:
+            _operation.register_failure_hook(self._on_transport_error)
+            faults.on_fault.append(self._on_fault)
+            self._installed = True
+
+    def close(self) -> None:
+        if self._installed:
+            _operation.unregister_failure_hook(self._on_transport_error)
+            try:
+                faults.on_fault.remove(self._on_fault)
+            except ValueError:
+                pass
+            self._installed = False
+
+    # -- triggers ----------------------------------------------------------
+
+    def _on_fault(self, point: str, **ctx) -> None:
+        # chaos-harness fault fired: light capture (the fault's own action —
+        # sever/garble — runs next, possibly under the instrumented point's
+        # locks, so no metric-provider walk here either)
+        self.capture(
+            f"fault:{point}", include_metrics=False, include_membership=False, **ctx
+        )
+
+    def _on_transport_error(self, exc: BaseException) -> None:
+        # LIGHT capture: the hook fires inside TransportError.__init__, i.e.
+        # potentially under arbitrary subsystem locks — walking the metric
+        # providers (which take those same non-reentrant locks) from here
+        # could self-deadlock, so the error-path bundle is trace-tail only.
+        self.capture(
+            "transport_error",
+            include_metrics=False,
+            include_membership=False,
+            error=f"{type(exc).__name__}: {exc}",
+        )
+
+    def capture(
+        self,
+        reason: str,
+        include_metrics: bool = True,
+        include_membership: bool = True,
+        **context,
+    ) -> Optional[dict]:
+        """Assemble and store one postmortem bundle.  Re-entrant triggers
+        (a metrics provider raising TransportError mid-capture) are dropped —
+        the recorder must never recurse on the error path."""
+        if getattr(self._capturing, "busy", False):
+            return None
+        self._capturing.busy = True
+        try:
+            bundle = {
+                "reason": reason,
+                "wall_time": time.time(),
+                "executor": self.executor_id,
+                "context": {k: _jsonable(v) for k, v in context.items()},
+                "trace_tail": self.tracer.tail(self.tail_events),
+                "trace_dropped": self.tracer.dropped,
+                "metrics": (
+                    self._registry.prometheus_text()
+                    if (include_metrics and self._registry)
+                    else None
+                ),
+                "membership": (
+                    self._membership() if (include_membership and self._membership) else None
+                ),
+            }
+            with self._lock:
+                self._captures += 1
+                bundle["seq"] = self._captures
+                self.postmortems.append(bundle)
+                del self.postmortems[:-MAX_BUNDLES]
+            if self.postmortem_dir:
+                self._dump(bundle)
+            return bundle
+        finally:
+            self._capturing.busy = False
+
+    # -- inspection --------------------------------------------------------
+
+    @property
+    def last_postmortem(self) -> Optional[dict]:
+        with self._lock:
+            return self.postmortems[-1] if self.postmortems else None
+
+    @property
+    def captures(self) -> int:
+        with self._lock:
+            return self._captures
+
+    # -- dump --------------------------------------------------------------
+
+    def _dump(self, bundle: dict) -> None:
+        try:
+            os.makedirs(self.postmortem_dir, exist_ok=True)
+            eid = "x" if self.executor_id is None else str(self.executor_id)
+            path = os.path.join(
+                self.postmortem_dir,
+                f"postmortem-e{eid}-{bundle['seq']:04d}-{bundle['reason']}.json",
+            )
+            with open(path, "w") as f:
+                json.dump(bundle, f)
+            bundle["path"] = path
+        except OSError:
+            pass  # postmortem capture must never become a second failure
+
+
+def _jsonable(v):
+    if isinstance(v, (str, int, float, bool)) or v is None:
+        return v
+    return str(v)

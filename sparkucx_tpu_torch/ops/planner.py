@@ -3,8 +3,8 @@
 Port of ``sparkucx_tpu/ops/planner.py`` (a verbatim copy: pure Python over
 ``ops/skew.ExchangePlan``).  ``PlanSignals.from_registry`` reads any object
 whose ``snapshot()`` yields samples with ``family``, ``name``, ``labels`` and
-``value``; the port has no metrics registry yet, so its transport plans with
-``PlanSignals()``, the cold-cluster reading.
+``value``; the transport plans from its cluster's ``obs/metrics.py``
+registry, as the JAX package's does.
 
 ``ExchangePlan`` (ops/skew.py) is the declarative exchange interface: rounds,
 per-round chunking, lowering tier, overlap depth, and the serve-plane tiers

@@ -42,6 +42,14 @@ their wrappers' ``launches``):
   exchange (K3 once, then K1 n) followed by the plain fold.
 * ``ici`` — the scheduled ring (K3, then K1 compaction) against the stock
   exchange at widths 2, 4 and 8, and the fused send side (K5).
+* ``server`` / ``client`` — the peer wire (transport/peer.py): a
+  ``PeerTransport`` serving ``-n`` registered blocks of ``-s`` bytes (or
+  slices of ``-f``) on ``-a`` (port 0 picks one; the line it prints names
+  it), and ``-t`` client threads fetching them ``-o`` at a time; host bytes
+  only, no kernel.  The server's store sits on ``--device``.
+* ``wire`` — ``measure_wire``: loopback peer-fetch GB/s at each of
+  ``--streams`` lanes, with receive syscalls per MB and the worst lane's p99
+  frame stall; host bytes only, no kernel.
 * ``measure_quantized_ici`` — the quantized leg of the ``compress`` mode
   (quantize, K3, K1 a receiver, dequantize) against the float32 stock
   exchange; the mode itself waits on its codec legs (``UNPORTED``).
@@ -58,12 +66,17 @@ from __future__ import annotations
 
 import argparse
 import sys
+import threading
 import time
+from typing import List
 
 import numpy as np
 import torch
 
 from sparkucx_tpu_torch.config import TpuShuffleConf, parse_size
+from sparkucx_tpu_torch.core.block import BytesBlock, FileBackedBlock, MemoryBlock, ShuffleBlockId
+from sparkucx_tpu_torch.core.operation import OperationStatus
+from sparkucx_tpu_torch.transport.peer import PeerTransport
 from sparkucx_tpu_torch.utils.devices import resolve_devices, upload
 from sparkucx_tpu_torch.utils.stats import StatsAggregator
 
@@ -76,9 +89,12 @@ MODES = (
 
 #: modes whose modules are not ported yet -> (ROADMAP queue A item, what it ports)
 UNPORTED = {
-    **{m: (7, "the wire and serving plane") for m in ("server", "client", "wire", "failover", "tenants", "gray",
-                                                       "fanin", "obs")},
-    "compress": (7, "the wire and serving plane its codec legs run on"),
+    "failover": (5, "the reader's replica failover"),
+    "gray": (5, "the reader's hedges and circuit breakers"),
+    "fanin": (5, "the reader's credit-pipelined fetch (CreditGate)"),
+    "obs": (5, "the reader whose fetch spans and failover it traces"),
+    "compress": (5, "the reader's credit-pipelined fetch its end-to-end leg runs on"),
+    "tenants": (7, "the tenant registry, service/tenants.py"),
     "elastic": (6, "the multi-process bootstrap and elastic path"),
     "queries": (8, "the query runner"),
 }
@@ -185,6 +201,182 @@ def resolve_sort_impl(sort_impl: str, device_type: str) -> str:
 # ----------------------------------------------------------------------------
 # superstep
 # ----------------------------------------------------------------------------
+
+
+def run_server(args) -> None:
+    host, _, port = args.address.rpartition(":")
+    size = parse_size(args.block_size)
+    conf = TpuShuffleConf(listener_address=(host or "127.0.0.1", int(port)))
+    transport = PeerTransport(conf, executor_id=0, device=args.device)
+    addr = transport.init()
+    rng = np.random.default_rng(0)
+    for i in range(args.num_blocks):
+        if args.file:
+            block = FileBackedBlock(args.file, offset=(i * size), length=size)
+        else:
+            block = BytesBlock(rng.integers(0, 256, size=size, dtype=np.uint8))
+        transport.register(ShuffleBlockId(0, 0, i), block)
+    print(f"serving {args.num_blocks} x {size} B blocks on {addr.decode()}", flush=True)
+    try:
+        while True:
+            time.sleep(1)  # server threads do the work (UcxPerfBenchmark.scala:204-207)
+    except KeyboardInterrupt:
+        transport.close()
+
+
+def run_client(args) -> None:
+    host, _, port = args.address.rpartition(":")
+    size = parse_size(args.block_size)
+    conf = TpuShuffleConf(max_blocks_per_request=max(args.outstanding, 1))
+    results_lock = threading.Lock()
+    printed: List[str] = []
+
+    def worker(tid: int) -> None:
+        transport = PeerTransport(conf, executor_id=100 + tid, device=args.device)
+        transport.add_executor(0, f"{host or '127.0.0.1'}:{port}".encode())
+        # -o bounds the blocks (and result buffers) in flight per window —
+        # numOutstanding semantics (UcxPerfBenchmark.scala:129-151)
+        bufs = [MemoryBlock(np.zeros(size, dtype=np.uint8), size=size) for _ in range(args.outstanding)]
+        for it in range(args.iterations):
+            t0 = time.perf_counter()
+            done_bytes = 0
+            for base in range(0, args.num_blocks, args.outstanding):
+                bids = [
+                    ShuffleBlockId(0, 0, (base + k) % args.num_blocks)
+                    for k in range(min(args.outstanding, args.num_blocks - base))
+                ]
+                reqs = transport.fetch_blocks_by_block_ids(0, bids, bufs[: len(bids)], [None] * len(bids))
+                while not all(r.completed() for r in reqs):
+                    transport.progress()
+                    transport.wait_for_activity(0.002)
+                for r in reqs:
+                    res = r.wait(1)
+                    assert res.status == OperationStatus.SUCCESS, str(res.error)
+                    done_bytes += res.stats.recv_size
+            dt = time.perf_counter() - t0
+            # Mb/s like the reference print (UcxPerfBenchmark.scala:140-143)
+            line = (
+                f"[thread {tid}] iter {it}: {done_bytes} bytes in {dt*1e3:.1f} ms "
+                f"= {done_bytes * 8 / dt / 1e6:.0f} Mb/s ({done_bytes / dt / 1e9:.2f} GB/s)"
+            )
+            with results_lock:
+                printed.append(line)
+                print(line, flush=True)
+        transport.close()
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(args.threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+def measure_wire(
+    streams_list=(1, 2, 4),
+    num_blocks: int = 8,
+    block_bytes: int = 32 << 20,
+    iterations: int = 5,
+    chunk_bytes: int = 4 << 20,
+    report=None,
+    device="cuda",
+) -> dict:
+    """Measurement core of the ``wire`` mode — loopback peer-fetch throughput
+    at several ``wire.streams`` lane counts (the striped zero-copy wire path).
+
+    One BlockServer-backed PeerTransport registers ``num_blocks`` blocks of
+    ``block_bytes``; for each streams value a fresh client fetches the whole
+    set per iteration (the whole batch in flight, the -o = -n shape).  Per
+    streams value the result carries best GB/s, receive syscalls per MB
+    (``recv_into`` calls / MB landed, from ``wire_lane_stats``), and the worst
+    lane's p99 frame stall.  ``streams = 1`` is the byte-identical single-lane
+    wire, so its row IS the pre-striping baseline.  ``report(streams, it,
+    seconds, bytes)`` per iteration.  The blocks are host bytes; ``device``
+    is where the transports' stores sit (the card unless ``"cpu"``)."""
+    server = PeerTransport(TpuShuffleConf(), executor_id=0, device=device)
+    addr = server.init()
+    rng = np.random.default_rng(0)
+    payload = rng.integers(0, 256, size=block_bytes, dtype=np.uint8)
+    bids = [ShuffleBlockId(0, 0, i) for i in range(num_blocks)]
+    for bid in bids:
+        server.register(bid, BytesBlock(payload.tobytes()))
+    total = num_blocks * block_bytes
+    results = {}
+    try:
+        for streams in streams_list:
+            conf = TpuShuffleConf(
+                wire_streams=streams,
+                wire_chunk_bytes=chunk_bytes,
+                max_blocks_per_request=num_blocks,
+            )
+            client = PeerTransport(conf, executor_id=100 + streams, device=device)
+            client.add_executor(0, addr)
+            bufs = [MemoryBlock(np.zeros(block_bytes, dtype=np.uint8), size=block_bytes) for _ in range(num_blocks)]
+
+            def fetch_once():
+                reqs = client.fetch_blocks_by_block_ids(0, bids, bufs, [None] * num_blocks)
+                while not all(r.completed() for r in reqs):
+                    client.progress()
+                    client.wait_for_activity(0.002)
+                for r in reqs:
+                    res = r.wait(1)
+                    assert res.status == OperationStatus.SUCCESS, str(res.error)
+
+            fetch_once()  # warmup: connect (+ stripe handshake), page in
+            assert bytes(bufs[0].host_view()[:64].tobytes()) == payload[:64].tobytes()
+            best = 0.0
+            t_all0 = time.perf_counter()
+            for it in range(iterations):
+                t0 = time.perf_counter()
+                fetch_once()
+                dt = time.perf_counter() - t0
+                best = max(best, total / dt / 1e9)
+                if report is not None:
+                    report(streams, it, dt, total)
+            wall = time.perf_counter() - t_all0
+            lanes = client.wire_lane_stats()
+            rx_bytes = sum(s["rx_bytes"] for s in lanes)
+            rx_syscalls = sum(s["rx_syscalls"] for s in lanes)
+            results[streams] = {
+                "gbps": best,
+                "mean_gbps": total * iterations / wall / 1e9,
+                "syscalls_per_mb": rx_syscalls / max(rx_bytes / 1e6, 1e-9),
+                "p99_frame_stall_ms": max(s["rx_stall_p99_ns"] for s in lanes) / 1e6,
+                "lanes": len(lanes),
+            }
+            client.close()
+    finally:
+        server.close()
+    return results
+
+
+def run_wire(args) -> None:
+    size = parse_size(args.block_size)
+    streams_list = tuple(int(s) for s in args.streams.split(","))
+
+    def report(streams, it, dt, tot):
+        print(
+            f"streams {streams} iter {it}: {args.num_blocks} x {size} B in "
+            f"{dt*1e3:.1f} ms = {tot / dt / 1e9:.2f} GB/s",
+            flush=True,
+        )
+
+    results = measure_wire(
+        streams_list, args.num_blocks, size, args.iterations,
+        chunk_bytes=parse_size(args.chunk_bytes), report=report, device=args.device,
+    )
+    base = results.get(1, {}).get("gbps")
+    for streams, r in sorted(results.items()):
+        speedup = (
+            f" ({r['gbps'] / base:.2f}x vs streams=1)"
+            if base and streams != 1
+            else ""
+        )
+        print(
+            f"wire streams {streams}: {r['gbps']:.2f} GB/s, "
+            f"{r['syscalls_per_mb']:.1f} syscalls/MB, "
+            f"p99 frame stall {r['p99_frame_stall_ms']:.2f} ms{speedup}",
+            flush=True,
+        )
 
 
 def run_superstep(args) -> None:
@@ -1749,6 +1941,9 @@ def _parse_args(argv):
 
 
 _RUNNERS = {
+    "server": run_server,
+    "client": run_client,
+    "wire": run_wire,
     "superstep": run_superstep,
     "pipeline": run_pipeline,
     "gather": run_gather,

@@ -1,7 +1,7 @@
 """Block resolver (L4) — map-side commit hook + local block serving.
 
-Port of ``sparkucx_tpu/shuffle/resolver.py`` without the replica placement
-helpers.  Counterpart of ``CommonUcxShuffleBlockResolver`` + the compat
+Port of ``sparkucx_tpu/shuffle/resolver.py`` without ``degraded_plan`` (the
+elastic path, ROADMAP queue A item 6).  Counterpart of ``CommonUcxShuffleBlockResolver`` + the compat
 resolvers (CommonUcxShuffleBlockResolver.scala:37-77,
 compat/spark_3_0/UcxShuffleBlockResolver.scala:28-97):
 
@@ -10,13 +10,15 @@ compat/spark_3_0/UcxShuffleBlockResolver.scala:28-97):
 * ``get_block_data``: serve a local block from the staged store
   (``serve_from_store=True``) or from the registered Block — the
   ``spark.dpuTest.enabled`` A/B switch (UcxShuffleBlockResolver.scala:86-97),
-* track shuffles for cleanup (``removeShuffle`` -> ``unregisterShuffle``).
+* track shuffles for cleanup (``removeShuffle`` -> ``unregisterShuffle``),
+* ``ring_neighbors`` / ``widened_ring_neighbors``: the replica placement the
+  peer transport's replicator and popularity tier derive from membership.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Set
+from typing import List, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -25,6 +27,41 @@ from sparkucx_tpu_torch.core.block import Block, ShuffleBlockId
 from sparkucx_tpu_torch.core.operation import BlockNotFoundError, TransportError
 from sparkucx_tpu_torch.core.transport import ShuffleTransport
 from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore
+
+
+def ring_neighbors(executor_id, executors: Sequence, factor: int) -> List:
+    """The ``factor`` ring successors of ``executor_id`` in the sorted
+    executor ring — where this executor's sealed rounds are replicated
+    (``spark.shuffle.tpu.replication.factor``), and therefore where a reducer
+    re-resolves a block when its primary dies.  Shared by the replicator
+    (transport/peer.py) and the reader's failover path so both sides derive
+    the same placement from membership alone, with no placement-metadata
+    exchange (the redistribution-plan determinism of arXiv:2112.01075)."""
+    ring = sorted(set(executors))
+    if executor_id not in ring or len(ring) < 2 or factor <= 0:
+        return []
+    idx = ring.index(executor_id)
+    out = []
+    for k in range(1, min(factor, len(ring) - 1) + 1):
+        out.append(ring[(idx + k) % len(ring)])
+    return out
+
+
+def widened_ring_neighbors(
+    executor_id, executors: Sequence, base_factor: int, hot_factor: int
+) -> Tuple[List, List]:
+    """Ring placement for a popularity-promoted (hot) block's replica set:
+    ``(base, extra)`` where ``base`` is the fault-tolerance floor
+    (``ring_neighbors`` at ``replication.factor``) and ``extra`` the
+    ADDITIONAL successors a hot promotion widens onto
+    (``spark.shuffle.tpu.serve.hotReplicas``, never narrower than the
+    floor).  Derived from membership alone — the same determinism contract
+    as :func:`ring_neighbors`, so the promoting server, its peers, and any
+    reader agree on the widened set without a placement exchange."""
+    base = ring_neighbors(executor_id, executors, base_factor)
+    widened = ring_neighbors(executor_id, executors, max(hot_factor, base_factor))
+    extra = [e for e in widened if e not in base]
+    return base, extra
 
 
 class _StoreBackedBlock(Block):

@@ -13,8 +13,18 @@ padding per block, first-commit-wins retries, multi-round rollover when a
 region fills (completed rounds become host snapshots, moved to an
 ``np.memmap`` disk tier when ``conf.spill_to_disk``), device rounds placed by
 the block-scatter kernel at seal, and ``read_block`` serving any round.
-Popularity tracking, replicas, the serve cache, eviction tiers, memory
-watermarks, tenants and shared-memory staging are not part of this port yet.
+
+The serving hooks the peer wire plane (transport/peer.py) calls are ported
+too: ``BlockPopularity`` (per-block fetch rates), the serve cache
+(``serve_cache_get``/``serve_cache_offer`` over service/eviction.py
+``ServeCache``), the replica tier (``put_replica``, ``replica_view``,
+``replica_block``, ``replica_source``, ``replica_stats``), the ``on_seal``
+hook, and ``block_staging_view``.  A block whose bytes lie on the device (a
+device-staged round) is handed out as ``DeviceRows`` by
+``block_device_rows`` so that a server packs a whole batch of them with one
+block-gather launch and copies it to the host once (``land_device_rows``).
+Eviction tiers, memory watermarks, tenants and shared-memory staging are not
+part of this port yet.
 
 Device memory is a ``torch.Tensor`` of ``(rows, lane)`` int32 words, one row
 per ``block_alignment`` bytes.
@@ -26,10 +36,11 @@ import os
 import shutil
 import tempfile
 import threading
+import time
 import weakref
 from bisect import bisect_right
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +48,8 @@ import torch
 from sparkucx_tpu_torch.config import TpuShuffleConf
 from sparkucx_tpu_torch.core.definitions import MapperInfo
 from sparkucx_tpu_torch.core.operation import BlockNotFoundError, TransportError
-from sparkucx_tpu_torch.ops.block_kernels import block_scatter, plan_tensors
+from sparkucx_tpu_torch.ops.block_kernels import block_gather, block_scatter, plan_tensors
+from sparkucx_tpu_torch.service.eviction import ServeCache
 from sparkucx_tpu_torch.utils.devices import normalize_device
 
 
@@ -74,12 +86,86 @@ def tensor_bytes(payload: torch.Tensor, offset: int, length: int) -> bytes:
     return rows.reshape(-1).view(np.uint8)[skip : skip + length].tobytes()
 
 
+class DeviceRows(NamedTuple):
+    """A block whose bytes lie in device memory: ``rows`` rows of ``src``
+    from row ``start``, the first ``length`` bytes of them its payload.
+    ``round_buffer`` is True when ``src`` is a whole sealed round (the
+    block-scatter kernel's output), False when it is the block's own tensor
+    (a round not sealed yet)."""
+
+    src: torch.Tensor
+    start: int
+    rows: int
+    length: int
+    round_buffer: bool
+
+
+def land_device_rows(items: Sequence[DeviceRows]) -> List[Tuple[np.ndarray, int, int]]:
+    """Host ``(uint8 array, offset, length)`` serving handles of
+    device-resident blocks, landed together: the blocks of one sealed round
+    are packed by one block-gather launch, blocks that are tensors of their
+    own (a round not sealed yet) by one concatenation, and all of it comes to
+    page-locked host memory in one copy (:func:`rows_to_host`).  The arrays
+    keep that buffer alive for as long as any handle is held."""
+    out: List[Tuple[np.ndarray, int, int]] = [(np.empty(0, dtype=np.uint8), 0, 0)] * len(items)
+    rounds: Dict[int, List[int]] = {}
+    loose: List[int] = []
+    for i, d in enumerate(items):
+        if d.rows:
+            if d.round_buffer:
+                rounds.setdefault(id(d.src), []).append(i)
+            else:
+                loose.append(i)
+    segments: List[torch.Tensor] = []
+    where: Dict[int, int] = {}
+    base = 0
+    for idxs in rounds.values():
+        counts = np.asarray([items[i].rows for i in idxs], dtype=np.int32)
+        outs = (np.cumsum(counts) - counts).astype(np.int32)
+        src = items[idxs[0]].src
+        s, c, o = plan_tensors([items[i].start for i in idxs], counts, outs, src.device)
+        segments.append(block_gather(s, c, o, src, int(counts.sum())))
+        for i, row in zip(idxs, outs.tolist()):
+            where[i] = base + row
+        base += int(counts.sum())
+    for i in loose:
+        segments.append(items[i].src[items[i].start : items[i].start + items[i].rows])
+        where[i] = base
+        base += items[i].rows
+    if segments:
+        packed = segments[0] if len(segments) == 1 else torch.cat(segments)
+        flat = rows_to_host(packed)
+        row_bytes = packed.shape[1] * packed.element_size()
+        for i, row in where.items():
+            out[i] = (flat, row * row_bytes, items[i].length)
+    return out
+
+
+def rows_to_host(rows: torch.Tensor) -> np.ndarray:
+    """A device row tensor's bytes on the host as one flat uint8 view: one
+    copy into page-locked memory on the calling thread's current stream,
+    waited for through its event (a reader of the view never sees the buffer
+    before the copy lands).  A CPU tensor is viewed as it is."""
+    if rows.device.type != "cuda":
+        return rows.numpy().reshape(-1).view(np.uint8)
+    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+    host.copy_(rows, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(rows.device))
+    done.synchronize()
+    return host.numpy().reshape(-1).view(np.uint8)
+
+
 @dataclass
 class _BlockEntry:
     offset: int  # absolute offset in the staging buffer (of its round)
     length: int  # true payload bytes
     padded: int  # bytes including alignment padding
     round: int = 0  # staging round (multi-round spill; round 0 = common case)
+    #: False for entries installed from a peer's MapperInfo — their offsets are
+    #: sender-relative, so the bytes live on the SENDER, not in local staging.
+    #: The replicator only pushes local entries.
+    local: bool = True
 
 
 class _ShuffleState:
@@ -317,6 +403,151 @@ class MapWriter:
         return self._discard
 
 
+class _BlockRate:
+    """One block's fetch-rate state (all fields guarded by the owning
+    tracker's ``_lock``)."""
+
+    __slots__ = ("ewma", "last_ns", "hot")
+
+    def __init__(self, now_ns: int) -> None:
+        self.ewma = 0.0  # fetches/sec EWMA of instantaneous 1/dt rates
+        self.last_ns = now_ns
+        self.hot = False
+
+
+class BlockPopularity:
+    """Per-block fetch-rate EWMAs driving the popularity-aware serving tier.
+
+    The same EWMA shape as the transport's ``_PeerHealth`` latency tracker,
+    pointed at demand instead of health: every served fetch folds its
+    instantaneous rate (``1e9 / dt_ns`` since the block's previous fetch)
+    into a per-block EWMA.  A block whose rate crosses
+    ``serve.hotThresholdFetchesPerSec`` is *hot*; the serving plane reacts at
+    shuffle granularity (replication pushes whole sealed rounds), so
+    :meth:`observe` reports shuffle-level transitions — the first block of a
+    shuffle to heat up promotes the shuffle, and the shuffle demotes only
+    when :meth:`sweep` finds every one of its blocks cooled below HALF the
+    threshold (hysteresis: the promote and demote edges never chatter on a
+    rate hovering at the threshold).  Cooling is rate-decay aware: a block
+    that simply stops being fetched demotes once ``1e9 / elapsed_ns`` falls
+    under the demote edge, even though no new sample ever arrives.
+
+    ``now_ns`` is injectable for deterministic tests.  ``_lock`` is a LEAF:
+    no calls out while held (the lock-order pass pins this via
+    LOCK_ATTR_CLASSES).
+    """
+
+    #: demote edge = threshold * _COOL_FRACTION (hysteresis band)
+    _COOL_FRACTION = 0.5
+    #: cold entries idle this long are forgotten (memory bound)
+    _IDLE_GC_NS = 60 * 1_000_000_000
+
+    def __init__(
+        self,
+        hot_threshold_per_sec: float,
+        alpha: float = 0.25,
+        now_ns: Optional[Callable[[], int]] = None,
+    ) -> None:
+        self.hot_threshold = float(hot_threshold_per_sec)
+        self.alpha = float(alpha)
+        self._now_ns = now_ns if now_ns is not None else time.monotonic_ns
+        self._rates: Dict[Tuple[int, int, int], _BlockRate] = {}  #: guarded by self._lock
+        self._hot_counts: Dict[int, int] = {}  #: shuffle -> hot-block count; guarded by self._lock
+        self.stats: Dict[str, int] = {"promotions": 0, "demotions": 0}  #: guarded by self._lock
+        self._last_sweep_ns = 0  #: guarded by self._lock
+        self._lock = threading.Lock()  # LEAF: no calls out while held
+
+    def observe(
+        self, shuffle_id: int, map_id: int, reduce_id: int
+    ) -> Tuple[bool, List[Tuple[int, bool]]]:
+        """Fold one served fetch into the block's EWMA.  Returns
+        ``(block_is_hot, [(shuffle_id, True)] when this fetch promoted the
+        shuffle)`` — the serving plane widens the shuffle's replica set on
+        that transition and admits the block to the serve cache while hot."""
+        if self.hot_threshold <= 0:
+            return False, []
+        now = self._now_ns()
+        key = (shuffle_id, map_id, reduce_id)
+        with self._lock:
+            r = self._rates.get(key)
+            if r is None:
+                self._rates[key] = _BlockRate(now)
+                return False, []
+            dt = max(now - r.last_ns, 1)
+            r.last_ns = now
+            r.ewma = self.alpha * (1e9 / dt) + (1.0 - self.alpha) * r.ewma
+            transitions: List[Tuple[int, bool]] = []
+            if not r.hot and r.ewma >= self.hot_threshold:
+                r.hot = True
+                self.stats["promotions"] += 1
+                n = self._hot_counts.get(shuffle_id, 0)
+                self._hot_counts[shuffle_id] = n + 1
+                if n == 0:
+                    transitions.append((shuffle_id, True))
+            return r.hot, transitions
+
+    def sweep(self, now_ns: Optional[int] = None) -> List[Tuple[int, bool]]:
+        """Cool-down pass: demote hot blocks whose effective rate —
+        ``min(ewma, 1e9 / elapsed_ns)``, so silence decays the rate — fell
+        below the demote edge, and forget long-idle cold blocks.  Returns
+        ``[(shuffle_id, False)]`` for every shuffle whose LAST hot block
+        cooled (the serving plane drops the widened advertisement then)."""
+        now = self._now_ns() if now_ns is None else now_ns
+        cool_edge = self.hot_threshold * self._COOL_FRACTION
+        transitions: List[Tuple[int, bool]] = []
+        with self._lock:
+            for key, r in list(self._rates.items()):
+                elapsed = max(now - r.last_ns, 1)
+                effective = min(r.ewma, 1e9 / elapsed)
+                if r.hot:
+                    if effective < cool_edge:
+                        r.hot = False
+                        r.ewma = effective
+                        self.stats["demotions"] += 1
+                        n = self._hot_counts.get(key[0], 1) - 1
+                        if n <= 0:
+                            self._hot_counts.pop(key[0], None)
+                            transitions.append((key[0], False))
+                        else:
+                            self._hot_counts[key[0]] = n
+                elif elapsed > self._IDLE_GC_NS:
+                    del self._rates[key]
+        return transitions
+
+    def maybe_sweep(
+        self, min_interval_ns: int = 1_000_000_000
+    ) -> List[Tuple[int, bool]]:
+        """Rate-limited :meth:`sweep`, safe to call on every served batch:
+        at most one cool-down pass per ``min_interval_ns`` actually scans."""
+        if self.hot_threshold <= 0:
+            return []
+        now = self._now_ns()
+        with self._lock:
+            if now - self._last_sweep_ns < min_interval_ns:
+                return []
+            self._last_sweep_ns = now
+        return self.sweep(now)
+
+    def is_hot(self, shuffle_id: int) -> bool:
+        with self._lock:
+            return self._hot_counts.get(shuffle_id, 0) > 0
+
+    def hot_shuffles(self) -> List[int]:
+        with self._lock:
+            return sorted(self._hot_counts)
+
+    def snapshot(self) -> Dict[str, int]:
+        """Counter snapshot for MetricsRegistry export (``serve`` family)."""
+        with self._lock:
+            return {
+                "promotions": self.stats["promotions"],
+                "demotions": self.stats["demotions"],
+                "tracked_blocks": len(self._rates),
+                "hot_blocks": sum(self._hot_counts.values()),
+                "hot_shuffles": len(self._hot_counts),
+            }
+
+
 class HbmBlockStore:
     """Per-executor staged shuffle store.  See module docstring.
 
@@ -336,6 +567,19 @@ class HbmBlockStore:
         self._spill_holder: Dict[str, Optional[str]] = {"dir": None}  #: guarded by self._lock
         self._spill_finalizer = weakref.finalize(self, _purge_spill_dir, self._spill_holder)
         self._spill_bytes = 0  #: guarded by self._lock
+        #: Bounded serve-side decoded-block cache (popularity tier).  None when
+        #: serve.cacheBytes is 0 (default): the off path allocates nothing.
+        self.serve_cache: Optional[ServeCache] = (
+            ServeCache(self.conf.serve_cache_bytes) if self.conf.serve_cache_bytes > 0 else None
+        )
+        #: Neighbor-replication tier (REPLICA_PUT landing zone):
+        #: (shuffle_id, src_executor) -> round -> ((map, reduce) -> (offset,
+        #: length) index, contiguous body array).
+        self._replicas: Dict[Tuple[int, int], Dict[int, Tuple[Dict[Tuple[int, int], Tuple[int, int]], np.ndarray]]] = {}  #: guarded by self._lock
+        self._replica_bytes = 0  #: guarded by self._lock
+        #: Post-seal hook (PeerTransport installs its replication push here),
+        #: invoked by seal() after the store lock is released.
+        self.on_seal: Optional[Callable[[int], None]] = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -369,10 +613,19 @@ class HbmBlockStore:
             st = self._shuffles.pop(shuffle_id, None)
             if st is not None:
                 self._release_spill(st)
+            for key in [k for k in self._replicas if k[0] == shuffle_id]:
+                for _index, arr in self._replicas[key].values():
+                    self._replica_bytes -= int(arr.size)
+                del self._replicas[key]
+        # the cache lock is a leaf, never nested under self._lock
+        if self.serve_cache is not None:
+            self.serve_cache.invalidate_shuffle(shuffle_id)
 
     def close(self) -> None:
         with self._lock:
             states, self._shuffles = list(self._shuffles.values()), {}
+            self._replicas.clear()
+            self._replica_bytes = 0
             for st in states:
                 self._release_spill(st)
             _purge_spill_dir(self._spill_holder)
@@ -500,7 +753,7 @@ class HbmBlockStore:
             for r, (off, ln) in enumerate(info.partitions):
                 if ln:
                     padded = -(-ln // st.alignment) * st.alignment
-                    st.blocks[(info.map_id, r)] = _BlockEntry(off, ln, padded, info.round_of(r))
+                    st.blocks[(info.map_id, r)] = _BlockEntry(off, ln, padded, info.round_of(r), local=False)
             st.committed_maps.add(info.map_id)
 
     # -- seal + exchange hand-off -----------------------------------------
@@ -534,6 +787,10 @@ class HbmBlockStore:
                     payload = payload.to(self.device)
             out.append((payload, final_sizes))
             st.sealed_payload = [p for p, _ in out]
+        # replication hook, outside the lock: the sealed rounds are immutable now
+        cb = self.on_seal
+        if cb is not None:
+            cb(shuffle_id)
         return out
 
     def num_rounds(self, shuffle_id: int) -> int:
@@ -573,6 +830,12 @@ class HbmBlockStore:
             st = self._shuffles.get(shuffle_id)
         e = st.blocks.get((map_id, reduce_id)) if st is not None else None
         if e is None:
+            # replica tier: a ring neighbor's pushed copy serves even for a
+            # shuffle this executor never created locally (failover serving)
+            replica = self.replica_view(shuffle_id, map_id, reduce_id)
+            if replica is not None:
+                arr, off, ln = replica
+                return arr[off : off + ln].tobytes()
             if st is None:
                 raise TransportError(f"unknown shuffle {shuffle_id}")
             raise BlockNotFoundError(shuffle_id, map_id, reduce_id, "not staged")
@@ -606,12 +869,202 @@ class HbmBlockStore:
             raise TransportError(f"no block ({shuffle_id},{map_id},{reduce_id}) staged")
         return e.offset
 
+    # -- serving hooks (transport/peer.py) ---------------------------------
+
+    def block_device_rows(self, shuffle_id: int, map_id: int, reduce_id: int) -> Optional[DeviceRows]:
+        """Where a locally staged block's bytes lie when they lie in device
+        memory — the device-staged round, sealed (rows of the block-scatter
+        kernel's output) or not (the block's own tensor) — else None.  A
+        server lands a batch of these with :func:`land_device_rows`."""
+        st = self._state(shuffle_id)
+        e = st.blocks.get((map_id, reduce_id))
+        if e is None or not e.local:
+            return None
+        with self._lock:
+            return self._device_rows_locked(st, e, map_id, reduce_id)
+
+    def _device_rows_locked(self, st: _ShuffleState, e: _BlockEntry, map_id: int, reduce_id: int) -> Optional[DeviceRows]:
+        """Caller holds self._lock."""
+        if e.round < len(st.prev_rounds) or not st.device_mode:
+            return None
+        rows = -(-e.length // st.alignment)
+        if st.sealed:
+            return DeviceRows(st.sealed_payload[e.round], e.offset // st.alignment, rows, e.length, True)
+        block = st.device_blocks.get((map_id, reduce_id))
+        if block is None:
+            if rows:
+                return None
+            # a committed empty block has no tensor: it is served as size 0
+            # (the JAX store answers it as missing, ROADMAP queue C3)
+            block = torch.empty((0, st.alignment // 4), dtype=torch.int32)
+        return DeviceRows(block, 0, rows, e.length, False)
+
+    def block_staging_view(
+        self, shuffle_id: int, map_id: int, reduce_id: int
+    ) -> Optional[Tuple[np.ndarray, int, int]]:
+        """Zero-copy serving handle: (host staging uint8 array, offset, length)
+        for a staged block, or None when unknown.  Host staging is append-only
+        and retained until ``remove_shuffle``, so the view stays valid for the
+        shuffle's lifetime.  A block of the device-staged round has no host
+        staging: it comes back as a private host copy of its rows (servers
+        take such blocks a batch at a time through ``block_device_rows``)."""
+        st = self._state(shuffle_id)
+        e = st.blocks.get((map_id, reduce_id))
+        if e is None:
+            return None
+        with self._lock:
+            if e.round >= len(st.prev_rounds) and st.device_mode:
+                d = self._device_rows_locked(st, e, map_id, reduce_id)
+                if d is None:
+                    return None
+                return land_device_rows([d])[0]
+            staging = st.prev_rounds[e.round][0] if e.round < len(st.prev_rounds) else st.staging
+        return staging, e.offset, e.length
+
+    # -- serve-side decoded-block cache (popularity tier) -----------------
+
+    def serve_cache_get(
+        self, shuffle_id: int, map_id: int, reduce_id: int
+    ) -> Optional[Tuple[np.ndarray, int, int]]:
+        """Serving handle from the hot-block cache, shaped like
+        ``block_staging_view``, or None on a miss or with the cache off."""
+        cache = self.serve_cache
+        if cache is None:
+            return None
+        data = cache.get((shuffle_id, map_id, reduce_id))
+        if data is None:
+            return None
+        return np.frombuffer(data, dtype=np.uint8), 0, len(data)
+
+    def serve_cache_offer(self, shuffle_id: int, map_id: int, reduce_id: int, data: bytes) -> bool:
+        """Pin one hot decoded block in the serve cache.  False when the cache
+        is off or the block outsizes the whole budget (the fetch still serves
+        from staging).  No tenant is charged: tenants are not ported."""
+        cache = self.serve_cache
+        if cache is None or not data or len(data) > cache.capacity_bytes:
+            return False
+        cache.put((shuffle_id, map_id, reduce_id), data)
+        return True
+
+    # -- neighbor-replication tier (REPLICA_PUT/failover serving) ----------
+
+    def replica_source(self, shuffle_id: int) -> List[Tuple[int, List[Tuple[int, int, int]], bytes]]:
+        """Snapshot this executor's sealed rounds for replication: one
+        ``(round, [(map, reduce, length)...], body bytes)`` per staging round,
+        body = the unpadded block payloads concatenated in table order.  Only
+        locally staged entries are included.  The device-staged round's
+        blocks come off the device together (``land_device_rows``)."""
+        st = self._state(shuffle_id)
+        out: List[Tuple[int, List[Tuple[int, int, int]], bytes]] = []
+        with self._lock:
+            for rnd in range(st.round + 1):
+                keys = sorted(k for k, e in st.blocks.items() if e.round == rnd and e.local)
+                entries = [(m, r, st.blocks[(m, r)].length) for m, r in keys]
+                if rnd >= len(st.prev_rounds) and st.device_mode:
+                    items = []
+                    for m, r in keys:
+                        d = self._device_rows_locked(st, st.blocks[(m, r)], m, r)
+                        if d is None:
+                            raise TransportError(
+                                f"device block ({shuffle_id},{m},{r}) no longer resident — cannot replicate"
+                            )
+                        items.append(d)
+                    views = land_device_rows(items)
+                else:
+                    staging = st.prev_rounds[rnd][0] if rnd < len(st.prev_rounds) else st.staging
+                    views = [(staging, st.blocks[k].offset, st.blocks[k].length) for k in keys]
+                body = b"".join(arr[off : off + ln].tobytes() for arr, off, ln in views)
+                if entries:
+                    out.append((rnd, entries, body))
+        return out
+
+    def put_replica(
+        self,
+        shuffle_id: int,
+        src_executor: int,
+        round_idx: int,
+        entries: Sequence[Tuple[int, int, int]],
+        body,
+    ) -> None:
+        """Install one replicated round pushed by a ring neighbor.  ``body``
+        is the concatenated unpadded payloads in ``entries`` order; a repeated
+        put for the same (shuffle, src, round) replaces the old copy."""
+        index: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        pos = 0
+        for m, r, ln in entries:
+            index[(m, r)] = (pos, ln)
+            pos += ln
+        if pos != len(body):
+            raise TransportError(
+                f"replica round (shuffle={shuffle_id}, src={src_executor}, "
+                f"round={round_idx}) table claims {pos} B but body is {len(body)} B"
+            )
+        if not len(body):
+            arr = np.empty(0, dtype=np.uint8)
+        elif isinstance(body, (bytes, bytearray)):
+            arr = np.frombuffer(body, dtype=np.uint8)
+        else:
+            arr = np.frombuffer(bytes(body), dtype=np.uint8)
+        with self._lock:
+            rounds = self._replicas.setdefault((shuffle_id, src_executor), {})
+            old = rounds.get(round_idx)
+            if old is not None:
+                self._replica_bytes -= int(old[1].size)
+            rounds[round_idx] = (index, arr)
+            self._replica_bytes += int(arr.size)
+
+    def replica_view(
+        self, shuffle_id: int, map_id: int, reduce_id: int
+    ) -> Optional[Tuple[np.ndarray, int, int]]:
+        """Zero-copy serving handle into a replicated round, or None when no
+        replica of the block has landed."""
+        with self._lock:
+            for (sid, _src), rounds in self._replicas.items():
+                if sid != shuffle_id:
+                    continue
+                for index, arr in rounds.values():
+                    hit = index.get((map_id, reduce_id))
+                    if hit is not None:
+                        return arr, hit[0], hit[1]
+        return None
+
+    def replica_block(
+        self, shuffle_id: int, src_executor: int, map_id: int, reduce_id: int
+    ) -> Optional[bytes]:
+        """The replicated bytes of one block from a named source executor, or
+        None when no replica of (src, block) landed here."""
+        with self._lock:
+            rounds = self._replicas.get((shuffle_id, src_executor))
+            if not rounds:
+                return None
+            for index, arr in rounds.values():
+                hit = index.get((map_id, reduce_id))
+                if hit is not None:
+                    return arr[hit[0] : hit[0] + hit[1]].tobytes()
+        return None
+
+    def replica_stats(self) -> Dict[str, int]:
+        """Replica-tier accounting across all shuffles."""
+        with self._lock:
+            return {
+                "replica_bytes": self._replica_bytes,
+                "replica_rounds": sum(len(r) for r in self._replicas.values()),
+                "replica_sources": len(self._replicas),
+            }
+
     # -- introspection -----------------------------------------------------
 
     def stats(self, shuffle_id: int) -> Dict[str, object]:
         st = self._state(shuffle_id)
         with self._lock:
+            replica_bytes = sum(
+                int(arr.size)
+                for (sid, _src), rounds in self._replicas.items()
+                if sid == shuffle_id
+                for _index, arr in rounds.values()
+            )
             return {
+                "replica_bytes": replica_bytes,
                 "num_blocks": len(st.blocks),
                 "bytes_staged": int(sum(e.length for e in st.blocks.values())),
                 "bytes_padded": int(sum(e.padded for e in st.blocks.values())),

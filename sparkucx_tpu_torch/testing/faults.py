@@ -1,0 +1,324 @@
+"""Fault-injection harness: named failure points for chaos testing.
+
+Copy of ``sparkucx_tpu/testing/faults.py``: the same injection points, so
+the port's wire plane (transport/peer.py, obs/recorder.py) arms and fires
+them under the same names.
+
+Production code calls ``faults.check("point", **ctx)`` (may raise or stall)
+and ``faults.transform("point", data, **ctx)`` (may corrupt bytes) at named
+points.  With nothing armed — the production state — both are a module
+attribute read plus a falsy branch; no locks, no dict lookups.
+
+Tests arm faults with :func:`arm` and an action built by the factories below
+(:func:`sever`, :func:`stall`, :func:`garble`, :func:`delay`, :func:`fail`),
+optionally scoped to a context match and a finite fire count, and clean up
+with :func:`reset` (or the :func:`injected_faults` context manager, which
+resets on exit even when the test body raises).
+
+Named points currently instrumented (transport/peer.py):
+
+====================  ==========================================================
+peer.client.recv      top of a client lane's recv loop, before each frame
+                      (ctx: ``peer``, ``lane``)
+peer.client.frame     transform hook over each received client frame header
+                      (ctx: ``peer``, ``lane``) — garbling it kills the lane
+peer.server.frame     server dispatch, after each decoded frame
+                      (ctx: ``peer``, ``am_id``)
+peer.server.chunk     transform hook over each striped chunk's payload, after
+                      its crc trailer is computed (ctx: ``tag``, ``block``) —
+                      garbling it models in-flight corruption the client-side
+                      ``wire.checksum`` verify must catch
+
+replica.push          replicator thread, before pushing a sealed shuffle
+                      (ctx: ``shuffle_id``, ``executor``)
+replica.apply         server side, before installing a received replica round
+                      (ctx: ``shuffle_id``, ``src_executor``, ``round_idx``)
+exchange.submit       collective plane (transport/tpu.py), before each round's
+                      submit (ctx: ``shuffle_id``, ``round``) — the hook that
+                      lets chaos tests kill an executor mid-superstep
+store.mem_pressure    store/hbm_store.py + memory/pool.py, before each
+                      allocation-bearing mutation (close_partition, device
+                      write, replica install, restage, pool growth) — arming
+                      ``fail(ResourceExhaustedError(...))`` models a host
+                      under memory pressure (ctx: ``site``, ``nbytes``)
+====================  ==========================================================
+
+:func:`kill_executor` force-kills a loopback-cluster executor: its server
+socket, accepted connections, and outbound client connections all die
+abruptly (peers observe EOF/reset, never a goodbye) — the in-process stand-in
+for SIGKILLing an executor process mid-superstep.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import random
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+
+#: Fast-path flag: every check/transform hook bails immediately when False.
+#: Written only under _lock; read racily by hooks (benign — worst case one
+#: extra locked lookup around an arm/reset edge).
+active = False
+
+_lock = threading.Lock()
+
+
+@dataclass
+class _Armed:
+    point: str
+    action: Callable[..., Any]
+    times: Optional[int] = None  # remaining fires; None = unlimited
+    match: Optional[Dict[str, Any]] = None  # ctx subset that must match
+    fired: int = 0
+
+
+_armed: List[_Armed] = []  #: guarded by _lock
+#: total fires per point (telemetry for tests); guarded by _lock
+fired: Dict[str, int] = {}
+
+#: Fault observers, called ``(point, **ctx)`` AFTER an armed fault fires —
+#: the flight recorder (obs/recorder.py) subscribes so chaos events land in
+#: postmortem bundles.  Called outside _lock, before the fault's own action
+#: (which may raise); observer exceptions are swallowed: observability must
+#: never change what a chaos test injects.
+on_fault: List[Callable[..., None]] = []
+
+
+def _notify(point: str, ctx: Dict[str, Any]) -> None:
+    for cb in list(on_fault):
+        try:
+            cb(point, **ctx)
+        except Exception:
+            pass
+
+
+def arm(
+    point: str,
+    action: Callable[..., Any],
+    *,
+    times: Optional[int] = None,
+    match: Optional[Dict[str, Any]] = None,
+) -> _Armed:
+    """Arm ``action`` at ``point``.  ``times`` bounds how often it fires;
+    ``match`` restricts it to calls whose context contains the given items."""
+    global active
+    entry = _Armed(point, action, times, match)
+    with _lock:
+        _armed.append(entry)
+        active = True
+    return entry
+
+
+def disarm(entry: _Armed) -> None:
+    global active
+    with _lock:
+        if entry in _armed:
+            _armed.remove(entry)
+        active = bool(_armed)
+
+
+def reset() -> None:
+    """Disarm everything and clear telemetry."""
+    global active
+    with _lock:
+        _armed.clear()
+        fired.clear()
+        active = False
+
+
+@contextlib.contextmanager
+def injected_faults(*arms):
+    """``with injected_faults((point, action), ...):`` — resets on exit even
+    when the body raises, so one chaotic test cannot poison the next."""
+    entries = [arm(point, action) for point, action in arms]
+    try:
+        yield entries
+    finally:
+        reset()
+
+
+def _select(point: str, ctx: Dict[str, Any]) -> List[_Armed]:
+    out = []
+    for entry in _armed:
+        if entry.point != point:
+            continue
+        if entry.times is not None and entry.fired >= entry.times:
+            continue
+        if entry.match and any(ctx.get(k) != v for k, v in entry.match.items()):
+            continue
+        out.append(entry)
+    return out
+
+
+def check(point: str, **ctx) -> None:
+    """Fire any armed action at ``point``.  Actions may raise (sever), sleep
+    (stall/delay), or no-op; their return value is ignored."""
+    if not active:
+        return
+    with _lock:
+        hits = _select(point, ctx)
+        for entry in hits:
+            entry.fired += 1
+        if hits:
+            fired[point] = fired.get(point, 0) + len(hits)
+    if hits:
+        _notify(point, ctx)
+    for entry in hits:  # run actions outside the lock: they may sleep
+        entry.action(point=point, **ctx)
+
+
+def transform(point: str, data, **ctx):
+    """Pass ``data`` through any armed transform at ``point``; actions return
+    the (possibly corrupted) replacement."""
+    if not active:
+        return data
+    with _lock:
+        hits = _select(point, ctx)
+        for entry in hits:
+            entry.fired += 1
+        if hits:
+            fired[point] = fired.get(point, 0) + len(hits)
+    if hits:
+        _notify(point, ctx)
+    for entry in hits:
+        data = entry.action(data, point=point, **ctx)
+    return data
+
+
+# -- action factories ------------------------------------------------------
+
+
+def sever(message: str = "fault injected: connection severed"):
+    """check-action: raise ConnectionResetError, as if the peer RST the lane."""
+
+    def _act(**_ctx):
+        raise ConnectionResetError(message)
+
+    return _act
+
+
+def stall(seconds: float):
+    """check-action: hang the calling thread, as if the peer stopped sending
+    mid-frame (long enough past ``wire.timeoutMs`` and the timeout fires)."""
+
+    def _act(**_ctx):
+        time.sleep(seconds)
+
+    return _act
+
+
+#: Replication-delay alias — same behavior, clearer chaos-test intent.
+delay = stall
+
+
+def garble(xor: int = 0xFF):
+    """transform-action: corrupt every byte (XOR) of the passing data."""
+
+    def _act(data, **_ctx):
+        # vectorized buffer XOR — MiB-scale chunks pass through chaos tests
+        # at memcpy speed instead of a per-byte Python loop
+        arr = np.frombuffer(bytes(data), dtype=np.uint8) ^ np.uint8(xor)
+        return bytearray(arr.tobytes())
+
+    return _act
+
+
+def throttle(bytes_per_sec: float):
+    """transform-action: pace the passing data to ``bytes_per_sec`` — the
+    gray-failure stand-in for a congested / degraded link.  Sleeps
+    ``len(data) / bytes_per_sec`` and returns the data unchanged, so the
+    peer is slow but every byte still arrives bit-identically."""
+
+    def _act(data, **_ctx):
+        n = len(data)
+        if n and bytes_per_sec > 0:
+            time.sleep(n / bytes_per_sec)
+        return data
+
+    return _act
+
+
+def flaky(p: float, seed: int = 0):
+    """check-action: raise ConnectionResetError with probability ``p`` per
+    call, from a private deterministic stream — the same ``seed`` replays the
+    same failure pattern, so flaky-peer chaos tests are reproducible."""
+    rng = random.Random(seed)
+    rng_lock = threading.Lock()
+
+    def _act(**_ctx):
+        with rng_lock:
+            roll = rng.random()
+        if roll < p:
+            raise ConnectionResetError(f"fault injected: flaky peer (p={p})")
+
+    return _act
+
+
+def fail(exc: BaseException):
+    """check-action: raise an arbitrary prepared exception."""
+
+    def _act(**_ctx):
+        raise exc
+
+    return _act
+
+
+# -- executor chaos --------------------------------------------------------
+
+
+def kill_executor(transport) -> None:
+    """Abruptly kill a loopback-cluster executor (a ``PeerTransport``).
+
+    Closes the listen socket, every accepted serving connection, and every
+    outbound client connection with no goodbye — peers see EOF/ECONNRESET
+    exactly as if the executor process died.  The transport object itself is
+    left unusable (fetches through it fail), matching a dead process.
+
+    Transports that model in-process executors (``TpuShuffleTransport``)
+    expose a ``chaos_kill`` hook instead of sockets: it closes the executor's
+    store and reports the death to cluster membership, so the collective
+    plane observes the loss the same way the wire plane observes a RST.
+
+    Idempotent: a second kill of the same transport is a no-op — real
+    processes only die once, and chaos tests that tear down in both the test
+    body and a finally block must not trip over the first kill's cleanup.
+    """
+    if getattr(transport, "_chaos_killed", False):
+        return
+    try:
+        transport._chaos_killed = True
+    except AttributeError:
+        pass  # __slots__-style transports: kill proceeds, just not recorded
+    recorder = getattr(transport, "recorder", None)
+    if recorder is not None:
+        # full bundle BEFORE the kill: no subsystem lock is held here, and
+        # the dying executor's last metrics view is the interesting one —
+        # including its final peer-health/breaker view, the postmortem's
+        # best clue about WHY chaos chose this executor
+        health_snapshot = getattr(transport, "health_snapshot", None)
+        context = {"executor": getattr(transport, "executor_id", None)}
+        if health_snapshot is not None:
+            try:
+                context["peer_health"] = health_snapshot()
+            except Exception:
+                pass
+        recorder.capture("chaos_kill", **context)
+    chaos_kill = getattr(transport, "chaos_kill", None)
+    if chaos_kill is not None:
+        chaos_kill()
+    server = getattr(transport, "server", None)
+    if server is not None:
+        server.close()
+    conn_lock = getattr(transport, "_conn_lock", None)
+    if conn_lock is not None:
+        with conn_lock:
+            conns = list(transport._conns.values()) + list(transport._zombies)
+            transport._conns.clear()
+            transport._zombies = []
+        for c in conns:
+            c.close()

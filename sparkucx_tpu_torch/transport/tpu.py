@@ -26,7 +26,13 @@ per-block RDMA active messages:
 * ``fetch_blocks_device`` packs requested blocks into one device buffer with
   the gather kernel — the reference's reply packing
   (UcxWorkerWrapper.scala:397-448) without the host;
-* ``fetch_block`` is the pull fallback reading a store directly.
+* ``fetch_block`` is the pull fallback reading a store directly;
+* ``received_block_views`` resolves a batch of received blocks to host views
+  for a server (shuffle/daemon.py): zero-copy slices of host shards, and the
+  blocks of shards kept on the card landed together — one gather launch per
+  staging round, one copy to page-locked host memory;
+* ``metrics`` / ``metrics_text`` / ``export_trace`` are the obs plane's
+  cluster surfaces (the daemon's ``Metrics`` and ``ExportTrace`` ops).
 
 Single-controller topology: one cluster owns N per-executor transports
 (CommonUcxShuffleManager.scala:67-99).  ``devices`` gives each executor's
@@ -58,6 +64,8 @@ from sparkucx_tpu_torch.core.operation import (
     TransportError,
 )
 from sparkucx_tpu_torch.core.transport import ExecutorId, ShuffleTransport
+from sparkucx_tpu_torch.obs.metrics import MetricsRegistry, stats_aggregator_provider, tracer_provider
+from sparkucx_tpu_torch.obs.recorder import FlightRecorder
 from sparkucx_tpu_torch.ops.block_kernels import block_gather, plan_tensors
 from sparkucx_tpu_torch.ops.ici_exchange import resolve_exchange_impl
 from sparkucx_tpu_torch.ops.planner import PlanContext, PlanSignals, make_planner
@@ -68,7 +76,7 @@ from sparkucx_tpu_torch.ops.skew import (
     reassemble_round,
     slice_subround,
 )
-from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore, default_peer_ranges
+from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore, default_peer_ranges, rows_to_host
 from sparkucx_tpu_torch.transport.executor import (
     build_plan_exchange,
     execute_plan,
@@ -76,7 +84,7 @@ from sparkucx_tpu_torch.transport.executor import (
 )
 from sparkucx_tpu_torch.utils.devices import resolve_devices
 from sparkucx_tpu_torch.utils.stats import StatsAggregator
-from sparkucx_tpu_torch.utils.trace import instant, span
+from sparkucx_tpu_torch.utils.trace import TRACER, instant, merge_events, span
 
 #: exchanges a cluster keeps built; the least recently used one goes first
 EXCHANGE_CACHE_SIZE = 32
@@ -198,6 +206,39 @@ class TpuShuffleCluster:
         #: charged against conf.spill_disk_cap_bytes; the drain worker
         #: charges, remove_shuffle refunds
         self._recv_spill_bytes = 0  #: guarded by self._lock
+        #: Obs plane: the cluster-level registry (the planner reads its
+        #: signals from it) and a flight recorder that captures on request
+        #: only — it does not hook TransportError construction, which each
+        #: PeerTransport covers on the wire.  No elastic family: elastic
+        #: recovery is not ported.
+        self.metrics = MetricsRegistry()
+        self.metrics.register("ops", stats_aggregator_provider(self.stats))
+        self.metrics.register("obs", tracer_provider(TRACER))
+        self.recorder = FlightRecorder(
+            TRACER,
+            postmortem_dir=self.conf.obs_postmortem_dir or None,
+            ring_capacity=self.conf.obs_ring_capacity,
+        )
+        self.recorder.attach_registry(self.metrics)
+
+    # -- obs plane ---------------------------------------------------------
+
+    def export_trace(self, path: str, extra_buffers: Optional[List[List[dict]]] = None) -> int:
+        """Merge every executor's trace events into ONE Perfetto file with
+        pid = executor id; returns the event count.  The executors share the
+        process-wide TRACER (tracks split by the ``executor_scope`` eid tag);
+        peers' buffers pulled over TRACE_PULL (``PeerTransport.pull_trace``)
+        come in through ``extra_buffers``."""
+        import json
+
+        merged = merge_events([TRACER.events] + list(extra_buffers or []))
+        with open(path, "w") as f:
+            json.dump({"traceEvents": merged, "displayTimeUnit": "ms"}, f)
+        return len(merged)
+
+    def metrics_text(self) -> str:
+        """The cluster registry's Prometheus exposition."""
+        return self.metrics.prometheus_text()
 
     # -- lookup ------------------------------------------------------------
 
@@ -351,7 +392,7 @@ class TpuShuffleCluster:
             for rnd in range(num_rounds)
         )
         used_total = sum(int(np.sum(sr[1])) for s in sealed for sr in s)
-        signals = PlanSignals()  # no metrics registry in the port yet: a cold cluster
+        signals = PlanSignals.from_registry(self.metrics)
         ctx = PlanContext(
             num_executors=n,
             staging_slot_rows=staging_slot,
@@ -566,6 +607,38 @@ class TpuShuffleCluster:
         shard = meta.recv_shards[rnd][consumer]
         start = src_row * self.row_bytes
         return shard[start : start + length], length
+
+    def received_block_views(
+        self, block_ids: Sequence[ShuffleBlockId]
+    ) -> List[Optional[Tuple[np.ndarray, int, int]]]:
+        """Serving handles ``(uint8 array, offset, length)`` of received
+        blocks, each read by the executor that owns its reducer, or None for a
+        block that cannot be served (unknown shuffle, map or reducer).  Host
+        shards ('array', 'memmap') are sliced in place.  Blocks of shards
+        kept on the card ('device') are landed together: per (shuffle,
+        consumer), ``fetch_blocks_to_device`` packs them with one block-gather
+        launch per staging round, and the packed rows come to page-locked host
+        memory in one copy; the arrays keep that buffer alive."""
+        out: List[Optional[Tuple[np.ndarray, int, int]]] = [None] * len(block_ids)
+        on_device: Dict[Tuple[int, int], List[int]] = {}
+        for i, bid in enumerate(block_ids):
+            try:
+                meta = self.meta(bid.shuffle_id)
+                consumer = meta.owner_of_reduce(bid.reduce_id)
+                if meta.exchanged and meta.recv_shards is None:
+                    self._locate_rows(meta, consumer, bid.map_id, bid.reduce_id)  # raises for a bad block
+                    on_device.setdefault((bid.shuffle_id, consumer), []).append(i)
+                    continue
+                view, length = self.locate_received_block(consumer, bid.shuffle_id, bid.map_id, bid.reduce_id)
+                out[i] = (np.ascontiguousarray(view[:length]).reshape(-1).view(np.uint8), 0, int(length))
+            except (TransportError, ValueError, IndexError, KeyError):
+                pass  # answered as a miss (size -1), as the JAX daemon answers it
+        for (sid, consumer), idxs in on_device.items():
+            packed, entries = self.fetch_blocks_to_device(consumer, sid, [block_ids[i] for i in idxs])
+            flat = rows_to_host(packed)
+            for i, (row, length) in zip(idxs, entries.tolist()):
+                out[i] = (flat, row * self.row_bytes, length)
+        return out
 
     def _locate_rows(
         self, meta: _ShuffleMeta, consumer: ExecutorId, map_id: int, reduce_id: int

@@ -188,12 +188,13 @@ def test_cli_other_modes_name_the_roadmap_item(capsys, mode, item):
 
 def test_unported_modes_are_exactly_the_rest():
     ported = {"superstep", "pipeline", "gather", "write", "skew", "adaptive", "sort", "columnar", "groupby",
-              "join", "combine", "ici"}
+              "join", "combine", "ici", "server", "client", "wire"}
     assert set(benchmark.UNPORTED) == set(benchmark.MODES) - ported
-    assert len(benchmark.UNPORTED) == 11
-    # the compress mode's codec legs run on the wire plane (item 7); its
-    # quantized leg's core, measure_quantized_ici, is ported
-    assert benchmark.UNPORTED["compress"][0] == 7
+    assert len(benchmark.UNPORTED) == 8
+    # the compress mode's end-to-end leg runs through the reader's
+    # credit-pipelined fetch (item 5); its codec legs' wire and its
+    # quantized leg's core, measure_quantized_ici, are ported
+    assert benchmark.UNPORTED["compress"][0] == 5
 
 
 def test_cli_defaults_to_the_card(monkeypatch):

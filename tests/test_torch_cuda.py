@@ -953,3 +953,52 @@ def test_quantized_exchange_on_the_card_goes_through_k3_and_k1(cuda, mode):
     cpu = build_quantized_fused_exchange(["cpu"] * n, spec, q, n)
     want_f, _ = cpu(*(torch.from_numpy(a) for a in (starts, counts, outs, packed)), torch.zeros(data.shape), sizes)
     assert torch.equal(got_f.cpu().view(torch.int32), want_f.view(torch.int32))
+
+
+@pytest.mark.parametrize("streams", [1, 4])
+def test_block_server_over_a_device_staged_store(cuda, streams):
+    """A BlockServer over a store staged on the card through
+    ``write_partition_device`` and sealed by K2: a port PeerTransport fetches
+    every block over loopback TCP, bytes equal to the written ones, with one
+    K1 launch a fetch batch (the sealed round's blocks packed on the card and
+    copied to the host once), and nothing on the host per block."""
+    import time
+
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.core.block import MemoryBlock, ShuffleBlockId
+    from sparkucx_tpu_torch.transport.peer import PeerTransport
+
+    conf = TpuShuffleConf(staging_capacity_per_executor=8 << 20, block_alignment=512, device_staging=True,
+                          wire_streams=streams, wire_chunk_bytes=64 << 10, max_blocks_per_request=16)
+    rng = np.random.default_rng(30 + streams)
+    server, client = PeerTransport(conf, executor_id=0, device=cuda), PeerTransport(conf, executor_id=1, device=cuda)
+    try:
+        client.add_executor(0, server.init())
+        server.store.create_shuffle(0, 4, 8)
+        payloads = {}
+        for m in range(4):
+            w = server.store.map_writer(0, m)
+            for r in range(8):
+                n = int(rng.integers(1, 20_000))
+                raw = rng.integers(0, 256, size=-(-n // 512) * 512, dtype=np.uint8)
+                payloads[(m, r)] = raw[:n].tobytes()
+                w.write_partition_device(r, torch.from_numpy(raw.view(np.int32).reshape(-1, 128)).to(cuda), n)
+            w.commit()
+        scatter_before = block_scatter.launches
+        server.store.seal(0)
+        assert block_scatter.launches - scatter_before == 1
+        keys = sorted(payloads)
+        bufs = [MemoryBlock(np.zeros(len(payloads[k]), np.uint8), size=len(payloads[k])) for k in keys]
+        before = block_gather.launches
+        reqs = client.fetch_blocks_by_block_ids(0, [ShuffleBlockId(0, m, r) for m, r in keys], bufs, [None] * 32)
+        deadline = time.monotonic() + 30
+        while not all(r.completed() for r in reqs) and time.monotonic() < deadline:
+            client.progress()
+            client.wait_for_activity(0.002)
+        for k, req, buf in zip(keys, reqs, bufs):
+            assert req.wait(1).status.name == "SUCCESS"
+            assert buf.host_view()[: buf.size].tobytes() == payloads[k]
+        assert block_gather.launches - before == 2  # 32 blocks in batches of 16
+    finally:
+        client.close()
+        server.close()

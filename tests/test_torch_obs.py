@@ -1,0 +1,612 @@
+"""Port twins of ``tests/test_obs.py``: the obs plane of ``sparkucx_tpu_torch``
+— the tracer's bounded ring and fast path, the trace extensions of the fetch
+and replica frames, the metrics registry and its Prometheus text, the HTTP
+scrape, the flight recorder, the TRACE_PULL/METRICS_PULL AMs between peers
+and a replica push's span parenting its apply, stores on the CPU.  Cases that
+need the reader, cluster membership or the eviction manager are not ported.
+The last section holds the Prometheus text byte-equal to the JAX package's for
+the same registrations, and the recorder's bundles alike.
+"""
+
+import json
+import signal
+import struct
+import urllib.request
+
+import numpy as np
+import pytest
+
+from sparkucx_tpu_torch.config import TpuShuffleConf
+from sparkucx_tpu_torch.core.block import ShuffleBlockId
+from sparkucx_tpu_torch.core.definitions import (
+    REPLICA_TRACE_EXT_SIZE,
+    TRACE_EXT_SIZE,
+    AmId,
+    pack_replica_trace_ext,
+    pack_trace_ext,
+    unpack_replica_trace_ext,
+    unpack_trace_ext,
+)
+from sparkucx_tpu_torch.core.operation import TransportError
+from sparkucx_tpu_torch.obs.metrics import (
+    MetricsRegistry,
+    close_http_server,
+    counter_dict_provider,
+    sample,
+    start_http_server,
+    stats_aggregator_provider,
+    tracer_provider,
+    wire_lane_provider,
+)
+from sparkucx_tpu_torch.obs.recorder import MAX_BUNDLES, FlightRecorder
+from sparkucx_tpu_torch.shuffle.resolver import ring_neighbors
+from sparkucx_tpu_torch.testing import faults
+from sparkucx_tpu_torch.transport.peer import (
+    pack_batch_fetch_req,
+    split_fetch_req_trace,
+    unpack_batch_fetch_req,
+    unpack_fetch_req_app_id,
+)
+from sparkucx_tpu_torch.utils.stats import StatsAggregator
+from sparkucx_tpu_torch.utils.trace import TRACER, Tracer, merge_events, span
+from sparkucx_tpu_torch.transport import peer as _peer_mod
+
+#: seconds a test of this file may run; past it the test fails instead of
+#: hanging the run (a socket wait that never returns)
+TEST_TIMEOUT_S = 60
+
+
+@pytest.fixture(autouse=True)
+def _deadline():
+    """Interrupt this test with a TimeoutError once it has run for
+    ``TEST_TIMEOUT_S`` (SIGALRM; pytest runs tests on the main thread)."""
+
+    def expire(signum, frame):
+        raise TimeoutError(f"test ran past its {TEST_TIMEOUT_S} s limit")
+
+    previous = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, TEST_TIMEOUT_S)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+
+class PeerTransport(_peer_mod.PeerTransport):
+    """The port's PeerTransport with its store on the CPU (its default is the card)."""
+
+    def __init__(self, conf=None, executor_id=0, store=None, device="cpu"):
+        super().__init__(conf, executor_id, store, device=device)
+
+
+@pytest.fixture(autouse=True)
+def _clean_obs_state():
+    """The process-wide TRACER is shared across the suite (and the recorder
+    flips ``recording`` on); save/restore switches and empty the ring so
+    every test sees a clean plane."""
+    prev_enabled, prev_recording = TRACER.enabled, TRACER.recording
+    TRACER.clear()
+    faults.reset()
+    yield
+    TRACER.enabled, TRACER.recording = prev_enabled, prev_recording
+    TRACER.clear()
+    faults.reset()
+
+
+class TestTracerRing:
+    def test_capacity_bounds_and_counts_drops(self):
+        t = Tracer(enabled=True, capacity=4)
+        for i in range(10):
+            with t.span(f"s{i}"):
+                pass
+        assert len(t.events) == 4
+        assert t.dropped == 6
+        assert [e["name"] for e in t.events] == ["s6", "s7", "s8", "s9"]
+
+    def test_set_capacity_keeps_newest(self):
+        t = Tracer(enabled=True, capacity=8)
+        for i in range(8):
+            with t.span(f"s{i}"):
+                pass
+        t.set_capacity(2)
+        assert [e["name"] for e in t.events] == ["s6", "s7"]
+
+    def test_tail_returns_newest_in_order(self):
+        t = Tracer(enabled=True, capacity=16)
+        for i in range(6):
+            with t.span(f"s{i}"):
+                pass
+        assert [e["name"] for e in t.tail(3)] == ["s3", "s4", "s5"]
+        assert len(t.tail(100)) == 6  # n past the ring = the whole ring
+
+    def test_recording_without_enabled_fills_ring(self):
+        t = Tracer(enabled=False, recording=True)
+        with t.span("warm"):
+            pass
+        assert t.active and [e["name"] for e in t.events] == ["warm"]
+
+    def test_clear_resets_drop_counter(self):
+        t = Tracer(enabled=True, capacity=1)
+        with t.span("a"):
+            pass
+        with t.span("b"):
+            pass
+        assert t.dropped == 1
+        t.clear()
+        assert t.dropped == 0 and t.events == []
+
+
+class TestDisabledFastPath:
+    def test_module_span_is_shared_noop_singleton(self):
+        TRACER.enabled = TRACER.recording = False
+        s1, s2 = span("a", key="v"), span("b")
+        assert s1 is s2  # one shared object: no allocation on the hot path
+        with s1:
+            pass
+        assert TRACER.events == []
+
+    def test_enabled_records_real_span(self):
+        TRACER.enabled = True
+        with span("real", shuffle_id=3):
+            pass
+        (ev,) = TRACER.events
+        assert ev["name"] == "real" and ev["args"]["shuffle_id"] == 3
+        assert ev["trace_id"] and ev["span_id"] and ev["parent_id"] == 0
+
+    def test_nested_spans_parent(self):
+        TRACER.enabled = True
+        with TRACER.span("outer") as octx:
+            with TRACER.span("inner"):
+                pass
+        inner, outer = TRACER.events
+        assert inner["parent_id"] == octx.span_id
+        assert inner["trace_id"] == outer["trace_id"]
+
+    def test_remote_context_reparents(self):
+        TRACER.enabled = True
+        remote = Tracer.remote_context(trace_id=77, span_id=88)
+        with TRACER.activate(remote):
+            with TRACER.span("served"):
+                pass
+        (ev,) = TRACER.events
+        assert ev["trace_id"] == 77 and ev["parent_id"] == 88
+
+    def test_executor_scope_stamps_eid_and_merge_rewrites_pid(self):
+        TRACER.enabled = True
+        with TRACER.executor_scope(5):
+            with TRACER.span("on5"):
+                pass
+        merged = merge_events([TRACER.events, TRACER.events])  # overlap dedups
+        assert len(merged) == 1
+        assert merged[0]["pid"] == 5  # executor id IS the Perfetto process
+
+
+_IDS = [ShuffleBlockId(1, 2, 3), ShuffleBlockId(1, 4, 5)]
+
+
+def _bare_header(tag, ids):
+    out = struct.pack("<Q", tag) + struct.pack("<I", len(ids))
+    for b in ids:
+        out += struct.pack("<iii", b.shuffle_id, b.map_id, b.reduce_id)
+    return out
+
+
+class TestTraceExtCodec:
+    def test_fetch_ext_roundtrip(self):
+        ext = pack_trace_ext(0xDEAD, 0xBEEF)
+        assert len(ext) == TRACE_EXT_SIZE
+        assert unpack_trace_ext(b"xxxx" + ext) == (0xDEAD, 0xBEEF)
+        assert unpack_trace_ext(b"\x00" * 40) is None  # no magic
+
+    def test_replica_ext_roundtrip(self):
+        ext = pack_replica_trace_ext(11, 22)
+        assert len(ext) == REPLICA_TRACE_EXT_SIZE
+        assert unpack_replica_trace_ext(b"hdr" + ext) == (11, 22)
+        assert unpack_replica_trace_ext(b"\x00" * 30) is None
+
+    def test_split_plain_header_untouched(self):
+        h = pack_batch_fetch_req(9, _IDS)
+        assert split_fetch_req_trace(h) == (None, h)
+
+    def test_split_strips_trailing_ext(self):
+        h = pack_batch_fetch_req(9, _IDS, trace=(123, 456))
+        ctx, stripped = split_fetch_req_trace(h)
+        assert ctx == (123, 456)
+        assert stripped == pack_batch_fetch_req(9, _IDS)
+
+    def test_split_with_app_ext_between(self):
+        h = pack_batch_fetch_req(9, _IDS, app_id="app-007", trace=(1, 2))
+        ctx, stripped = split_fetch_req_trace(h)
+        assert ctx == (1, 2)
+        assert unpack_fetch_req_app_id(stripped, len(_IDS)) == "app-007"
+
+    def test_adversarial_app_id_containing_magic_not_missplit(self):
+        """An app id whose utf-8 tail embeds the trace magic + 16 junk bytes
+        must NOT be mis-split: structural consistency rejects it."""
+        evil = "x" + pack_trace_ext(7, 8).decode("latin-1")
+        h = pack_batch_fetch_req(9, _IDS, app_id=evil)
+        ctx, stripped = split_fetch_req_trace(h)
+        assert ctx is None and stripped == h
+        # and the tenant ext still decodes to the evil app id untouched
+        assert unpack_fetch_req_app_id(h, len(_IDS)) == evil
+
+
+class TestGoldenFramesUnchanged:
+    """All obs knobs off => historical bytes exactly (the golden-frame pin)."""
+
+    def test_fetch_req_bytes_identical_without_trace(self):
+        assert pack_batch_fetch_req(42, _IDS) == _bare_header(42, _IDS)
+
+    def test_obs_knobs_default_off(self):
+        conf = TpuShuffleConf()
+        assert conf.obs_trace_context is False
+        assert conf.obs_metrics_port == 0
+        assert conf.obs_ring_capacity == 8192
+        assert conf.obs_postmortem_dir == ""
+
+    def test_knob_parsing_from_spark_conf(self):
+        conf = TpuShuffleConf.from_spark_conf(
+            {
+                "spark.shuffle.tpu.obs.traceContext": "true",
+                "spark.shuffle.tpu.obs.metricsPort": "9091",
+                "spark.shuffle.tpu.obs.ringCapacity": "1024",
+                "spark.shuffle.tpu.obs.postmortemDir": "/tmp/pm",
+            }
+        )
+        assert conf.obs_trace_context is True
+        assert conf.obs_metrics_port == 9091
+        assert conf.obs_ring_capacity == 1024
+        assert conf.obs_postmortem_dir == "/tmp/pm"
+
+    def test_knob_validation_bounds(self):
+        with pytest.raises(ValueError, match="obs_metrics_port"):
+            TpuShuffleConf(obs_metrics_port=70000).validate()
+        with pytest.raises(ValueError, match="obs_ring_capacity"):
+            TpuShuffleConf(obs_ring_capacity=0).validate()
+
+
+class TestOldReceiversIgnoreExt:
+    def test_old_server_parses_triples_despite_trailing_ext(self):
+        """A pre-obs server reads tag + count triples and never looks past
+        them — the trailing ext must not corrupt the parse."""
+        h = pack_batch_fetch_req(42, _IDS, trace=(9, 10))
+        tag, bids = unpack_batch_fetch_req(h)
+        assert tag == 42 and bids == _IDS
+
+    def test_old_tenant_server_sees_no_app_in_bare_trace_ext(self):
+        """The tenant-ext reader on a header that carries ONLY a trace ext
+        reads an absurd length and bails to None (single-tenant semantics) —
+        never a garbage app id."""
+        h = pack_batch_fetch_req(42, _IDS, trace=(9, 10))
+        assert unpack_fetch_req_app_id(h, len(_IDS)) is None
+
+    def test_old_tenant_server_still_reads_app_under_trace_ext(self):
+        h = pack_batch_fetch_req(42, _IDS, app_id="tenant-a", trace=(9, 10))
+        assert unpack_fetch_req_app_id(h, len(_IDS)) == "tenant-a"
+
+
+class TestMetricsRegistry:
+    def test_register_snapshot_prometheus(self):
+        reg = MetricsRegistry(executor_id=3)
+        reg.register("wire", lambda: [sample("wire", "tx_bytes_total", 128, {"lane": 0}, kind="counter")])
+        text = reg.prometheus_text()
+        assert "# TYPE sparkucx_tpu_wire_tx_bytes_total counter" in text
+        assert 'sparkucx_tpu_wire_tx_bytes_total{executor="3",lane="0"} 128' in text
+
+    def test_reregister_replaces_not_duplicates(self):
+        reg = MetricsRegistry()
+        reg.register("a", lambda: [sample("f", "x", 1)])
+        reg.register("a", lambda: [sample("f", "x", 2)])
+        rows = [s for s in reg.snapshot() if s.name == "x"]
+        assert len(rows) == 1 and rows[0].value == 2
+
+    def test_provider_error_counted_not_fatal(self):
+        reg = MetricsRegistry()
+        reg.register("bad", lambda: (_ for _ in ()).throw(RuntimeError("boom")))
+        reg.register("good", lambda: [sample("f", "ok", 1)])
+        text = reg.prometheus_text()
+        assert "sparkucx_tpu_f_ok 1" in text
+        assert "sparkucx_tpu_obs_provider_errors_total 1" in text
+        # the error count accumulates across snapshots
+        assert "provider_errors_total 2" in reg.prometheus_text()
+
+    def test_counter_dict_provider_skips_non_numeric(self):
+        p = counter_dict_provider("elastic", lambda: {"epoch": 4, "mesh": "[0,1]", "degraded": True})
+        rows = {s.name: s.value for s in p()}
+        assert rows == {"epoch": 4.0, "degraded": 1.0}  # string skipped, bool coerced
+
+    def test_wire_lane_provider_labels(self):
+        lanes = [{"executor": 1, "slot": 0, "lane": 2, "tx_bytes": 10, "rx_stall_p99_ns": 5}]
+        rows = {s.full_name: s for s in wire_lane_provider(lambda: lanes)()}
+        tx = rows["sparkucx_tpu_wire_tx_bytes_total"]
+        assert tx.kind == "counter" and dict(tx.labels) == {"peer": "1", "slot": "0", "lane": "2"}
+        assert rows["sparkucx_tpu_wire_rx_stall_p99_ns"].kind == "gauge"
+
+    def test_stats_aggregator_provider(self):
+        agg = StatsAggregator()
+        agg.record_counters("read", failovers=2, blocks_retried=1)
+        rows = {(s.name, dict(s.labels).get("kind")): s.value for s in stats_aggregator_provider(agg)()}
+        assert rows[("failovers_total", "read")] == 2
+        assert rows[("blocks_retried_total", "read")] == 1
+        assert ("count_total", "read") in rows  # counter-only kinds still listed
+
+    def test_tracer_provider(self):
+        t = Tracer(enabled=True, capacity=2)
+        with t.span("a"):
+            pass
+        rows = {s.name: s.value for s in tracer_provider(t)()}
+        assert rows["trace_events"] == 1 and rows["trace_dropped_total"] == 0
+
+
+class TestHttpScrape:
+    def test_get_metrics_and_404(self):
+        reg = MetricsRegistry(executor_id=0)
+        reg.register("f", lambda: [sample("f", "up", 1)])
+        server = start_http_server(reg, port=0)  # test-only: conf 0 means OFF
+        try:
+            host, port = server.server_address[:2]
+            body = urllib.request.urlopen(f"http://{host}:{port}/metrics").read().decode()
+            assert 'sparkucx_tpu_f_up{executor="0"} 1' in body
+            with pytest.raises(urllib.error.HTTPError):
+                urllib.request.urlopen(f"http://{host}:{port}/nope")
+        finally:
+            close_http_server(server)
+
+
+class TestFlightRecorder:
+    def test_capture_full_bundle(self):
+        reg = MetricsRegistry()
+        reg.register("f", lambda: [sample("f", "x", 7)])
+        rec = FlightRecorder(Tracer(enabled=True), executor_id=2)
+        rec.attach_registry(reg)
+        rec.attach_membership(lambda: {"epoch": 3, "alive": [0, 1], "dead": {}})
+        with rec.tracer.span("before-the-fault"):
+            pass
+        b = rec.capture("unit", detail="ctx")
+        assert b["reason"] == "unit" and b["executor"] == 2
+        assert b["context"] == {"detail": "ctx"}
+        assert [e["name"] for e in b["trace_tail"]] == ["before-the-fault"]
+        assert "sparkucx_tpu_f_x 7" in b["metrics"]
+        assert b["membership"]["epoch"] == 3
+        assert rec.last_postmortem is b or rec.last_postmortem == b
+
+    def test_bundles_bounded(self):
+        rec = FlightRecorder(Tracer())
+        for i in range(MAX_BUNDLES + 5):
+            rec.capture(f"r{i}")
+        assert len(rec.postmortems) == MAX_BUNDLES
+        assert rec.captures == MAX_BUNDLES + 5
+        assert rec.last_postmortem["reason"] == f"r{MAX_BUNDLES + 4}"
+
+    def test_transport_error_triggers_light_capture(self):
+        rec = FlightRecorder(Tracer())
+        reg = MetricsRegistry()
+        rec.attach_registry(reg)
+        rec.install()
+        try:
+            TransportError("synthetic wire failure")
+        finally:
+            rec.close()
+        b = rec.last_postmortem
+        assert b["reason"] == "transport_error"
+        assert "synthetic wire failure" in b["context"]["error"]
+        assert b["metrics"] is None  # light: no provider walk under unknown locks
+
+    def test_close_unhooks(self):
+        rec = FlightRecorder(Tracer())
+        rec.install()
+        rec.close()
+        TransportError("after close")
+        assert rec.last_postmortem is None
+
+    def test_chaos_fault_observer(self):
+        rec = FlightRecorder(Tracer())
+        rec.install()
+        try:
+            faults.arm("some.point", faults.stall(0))
+            faults.check("some.point", lane=1)
+        finally:
+            rec.close()
+            faults.reset()
+        b = rec.last_postmortem
+        assert b["reason"] == "fault:some.point"
+        assert b["context"]["lane"] == 1
+
+    def test_postmortem_dir_dumps_file(self, tmp_path):
+        rec = FlightRecorder(Tracer(), executor_id=1, postmortem_dir=str(tmp_path))
+        b = rec.capture("diskdump")
+        assert b["path"].endswith("postmortem-e1-0001-diskdump.json")
+        on_disk = json.loads((tmp_path / "postmortem-e1-0001-diskdump.json").read_text())
+        assert on_disk["reason"] == "diskdump"
+
+    def test_reentrant_capture_dropped(self):
+        rec = FlightRecorder(Tracer())
+        reg = MetricsRegistry()
+        # a provider that itself triggers a capture: must not recurse
+        reg.register("evil", lambda: [sample("f", "n", len(rec.postmortems) if rec.capture("inner") is None else -1)])
+        rec.attach_registry(reg)
+        b = rec.capture("outer")
+        assert b is not None and rec.captures == 1  # inner was dropped
+
+    def test_ring_capacity_applied(self):
+        t = Tracer(enabled=True)
+        FlightRecorder(t, ring_capacity=3)
+        for i in range(5):
+            with t.span(f"s{i}"):
+                pass
+        assert len(t.events) == 3
+
+
+def _mesh(n, **conf_kw):
+    conf_kw.setdefault("staging_capacity_per_executor", 1 << 20)
+    conf = TpuShuffleConf(**conf_kw)
+    ts = [PeerTransport(conf, executor_id=i) for i in range(n)]
+    addrs = [t.init() for t in ts]
+    for t in ts:
+        for j, a in enumerate(addrs):
+            if j != t.executor_id:
+                t.add_executor(j, a)
+    return ts
+
+
+def _close_all(ts):
+    for t in ts:
+        t.close()
+
+
+def _stage(t, shuffle_id, num_mappers, num_reducers, seed=0):
+    rng = np.random.default_rng(seed)
+    t.store.create_shuffle(shuffle_id, num_mappers, num_reducers)
+    payloads = {}
+    for m in range(num_mappers):
+        w = t.store.map_writer(shuffle_id, m)
+        for r in range(num_reducers):
+            data = rng.integers(0, 256, size=200 + 37 * (m + r), dtype=np.uint8).tobytes()
+            payloads[(m, r)] = data
+            w.write_partition(r, data)
+        w.commit()
+    return payloads
+
+
+class TestPullAms:
+    def test_trace_pull_returns_peer_scoped_events(self):
+        TRACER.enabled = True
+        ts = _mesh(2)
+        try:
+            with TRACER.executor_scope(1):
+                with TRACER.span("on-executor-1"):
+                    pass
+            with TRACER.executor_scope(0):
+                with TRACER.span("on-executor-0"):
+                    pass
+            buf = ts[0].pull_trace(1)
+            assert buf["executor"] == 1
+            assert [e["name"] for e in buf["events"]] == ["on-executor-1"]
+            assert buf["dropped"] == 0
+        finally:
+            _close_all(ts)
+
+    def test_metrics_pull_returns_prometheus_text(self):
+        ts = _mesh(2)
+        try:
+            text = ts[0].pull_metrics(1)
+            assert 'executor="1"' in text
+            assert "sparkucx_tpu_replica_" in text
+            assert "sparkucx_tpu_obs_trace_events" in text
+        finally:
+            _close_all(ts)
+
+    def test_pull_from_dead_peer_times_out_typed(self):
+        ts = _mesh(2, wire_timeout_ms=1000)
+        try:
+            faults.kill_executor(ts[1])
+            with pytest.raises((TransportError, OSError)):
+                ts[0].pull_trace(1, timeout=2.0)
+        finally:
+            _close_all(ts)
+
+    def test_http_scrape_disabled_by_default(self):
+        ts = _mesh(1)
+        try:
+            assert ts[0]._metrics_http is None
+        finally:
+            _close_all(ts)
+
+    def test_http_scrape_enabled_by_conf(self):
+        import socket
+
+        probe = socket.socket()
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+        probe.close()
+        ts = _mesh(1, obs_metrics_port=port)
+        try:
+            assert ts[0]._metrics_http is not None
+            body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics").read().decode()
+            assert "sparkucx_tpu_obs_trace_events" in body
+        finally:
+            _close_all(ts)
+
+
+class TestTracePropagation:
+
+
+    def test_replica_push_span_parents_apply(self):
+        TRACER.enabled = True
+        ts = _mesh(2, obs_trace_context=True, replication_factor=1)
+        try:
+            _stage(ts[0], 5, 1, 2)
+            ts[0].store.seal(5)
+            assert ts[0].replication_wait(5, timeout=10.0)
+            events = TRACER.events
+            pushes = {e["span_id"] for e in events if e["name"] == "replica.push"}
+            applies = [e for e in events if e["name"] == "server.replica_apply"]
+            assert pushes and applies
+            assert all(a["parent_id"] in pushes for a in applies)
+            assert {a["eid"] for a in applies} == {1}
+        finally:
+            _close_all(ts)
+
+
+# ---------------------------------------------------------------------------
+# parity: the same registrations give the JAX package's Prometheus text
+# ---------------------------------------------------------------------------
+
+import sparkucx_tpu.core.operation as jax_operation  # noqa: E402
+import sparkucx_tpu.obs.metrics as jax_metrics  # noqa: E402
+import sparkucx_tpu.obs.recorder as jax_recorder  # noqa: E402
+import sparkucx_tpu.utils.stats as jax_stats  # noqa: E402
+import sparkucx_tpu.utils.trace as jax_trace  # noqa: E402
+import sparkucx_tpu_torch.core.operation as port_operation  # noqa: E402
+import sparkucx_tpu_torch.obs.metrics as port_metrics  # noqa: E402
+
+
+def _register_everything(metrics, stats_mod, operation, tracer, executor_id, seed):
+    rng = np.random.default_rng(seed)
+    reg = metrics.MetricsRegistry(executor_id=executor_id)
+    agg = stats_mod.StatsAggregator()
+    for _ in range(20):
+        st = operation.OperationStats()
+        st.mark_done(recv_size=int(rng.integers(0, 1 << 20)))
+        agg.record("fetch", st)
+    agg.record_counters("wire", rx_bytes=int(rng.integers(0, 1 << 30)), rx_syscalls=17)
+    lanes = [{"executor": int(e), "slot": 0, "lane": k, "rx_bytes": int(rng.integers(0, 1 << 30)),
+              "rx_syscalls": int(rng.integers(0, 999)), "rx_stall_ns": int(rng.integers(0, 10**9)),
+              "rx_stall_p99_ns": int(rng.integers(0, 10**7))} for e in range(2) for k in range(2)]
+    counters = {"pushed_rounds": 3, "pushed_bytes": 123456789, "acks": 2.5, "name": "skipped", "flag": True}
+    reg.register("ops", metrics.stats_aggregator_provider(agg))
+    reg.register("wire", metrics.wire_lane_provider(lambda: lanes))
+    reg.register("replica", metrics.counter_dict_provider("replica", lambda: counters))
+    reg.register("obs", metrics.tracer_provider(tracer))
+    reg.register("f", lambda: [metrics.sample("f", "x", 1e-7, {"a": 'q"\\n'}), metrics.sample("f", "y", 2**53)])
+    return reg
+
+
+@pytest.mark.parametrize("executor_id", [None, 3])
+def test_prometheus_text_equals_the_jax_registrys(executor_id):
+    port = _register_everything(port_metrics, __import__("sparkucx_tpu_torch.utils.stats", fromlist=["x"]),
+                                port_operation, Tracer(capacity=8), executor_id, 11)
+    ref = _register_everything(jax_metrics, jax_stats, jax_operation, jax_trace.Tracer(capacity=8), executor_id, 11)
+    # the op latencies are wall times: compare everything but their values
+    strip = lambda text: [ln for ln in text.splitlines() if "_ns" not in ln or "wire" in ln]  # noqa: E731
+    p_text, j_text = port.prometheus_text(), ref.prometheus_text()
+    assert strip(p_text) == strip(j_text)
+    assert [ln.split(" ")[0] for ln in p_text.splitlines()] == [ln.split(" ")[0] for ln in j_text.splitlines()]
+
+
+def test_recorder_bundles_match_the_jax_recorders():
+    bundles = []
+    for recorder, metrics, tracer in ((FlightRecorder, port_metrics, Tracer(enabled=True)),
+                                      (jax_recorder.FlightRecorder, jax_metrics, jax_trace.Tracer(enabled=True))):
+        reg = metrics.MetricsRegistry()
+        reg.register("f", lambda m=metrics: [m.sample("f", "x", 7)])
+        rec = recorder(tracer, executor_id=2)
+        rec.attach_registry(reg)
+        with tracer.span("before"):
+            pass
+        b = rec.capture("unit", detail="ctx")
+        bundles.append({k: v for k, v in b.items() if k not in ("time", "wall_time", "trace_tail")})
+        bundles[-1]["tail"] = [e["name"] for e in b["trace_tail"]]
+    assert bundles[0] == bundles[1]
