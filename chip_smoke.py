@@ -146,22 +146,27 @@ failure propagates and the exit code is non-zero:
     equal a dict oracle and every reducer spilled;
 23. the Spark-facing shuffle daemon and the peer wire on the card, at
     GroupByTest's big gate (200 x 200 blocks, 25,000-byte values,
-    numKVPairs 1000, ~5 GB): a ``ShuffleDaemon`` with one, then four
-    executors sharing the card, under ``hostRecvMode`` ``array`` and
-    ``device``, written by four ``DaemonClient`` connections over loopback
-    TCP (committed lengths held against the written ones), RunExchange
-    (K1 counted: once a receiver), then every reducer's 200 blocks in one
-    FetchBlock batch, every byte held against the written ones; under
-    ``device`` the fetches once more with every K1 call held against its
-    plain version (one launch a batch) and the last timed at the
-    serve-batch shape; the raw ``jvm/fixtures/*.bin`` frames against a
-    daemon on the card; then two ``PeerTransport``s: executor 0's store
-    stages the same map output on the card (``write_partition_device``,
-    sealed by K2 once), executor 1 fetches every block at
-    ``wire.streams`` 1 (K1 once a batch, counted) and 4 (every K1 call of a
-    second run held, the last timed), then with ``wire.checksum`` on over
-    one reducer's first 40 blocks; then ``benchmark wire`` at 8 x 32 MiB
-    and a ``server`` process on an ephemeral port with a ``client``.
+    numKVPairs 1000, ~5 GB; numKVPairs 250 for the daemon), with every call
+    of K1, K2, K3, K4 and K6 in the phase held bit for bit against its plain
+    version and each part's launches checked: a ``ShuffleDaemon`` with one,
+    then four executors sharing the card, under ``hostRecvMode`` ``array``
+    and ``device``, written by four ``DaemonClient`` connections over
+    loopback TCP (committed lengths held against the written ones),
+    RunExchange (K1 once a receiver), then every reducer's 200 blocks in one
+    FetchBlock batch, every byte held against the written ones (under
+    ``device`` K1 once a batch, none under ``array``), and the batches
+    resolved to host views alone; a daemon write measured over one and four
+    connections and with a 0.1 ms thread switch interval; the raw
+    ``jvm/fixtures/*.bin`` frames against a daemon on the card (K1 once a
+    fetch frame); then two ``PeerTransport``s: executor 0's store stages the
+    same map output on the card (``write_partition_device``, sealed by K2
+    once), executor 1 fetches every block at ``wire.streams`` 1 and 4 (K1
+    once a batch), then with ``wire.checksum`` on over one reducer's first
+    40 blocks, then 40 reducers at streams 1 and 4 with a 0.1 ms switch
+    interval; then ``benchmark wire`` at 8 x 32 MiB and a ``server`` process
+    on an ephemeral port with a ``client`` (host bytes, no kernel); K1 timed
+    at the daemon's and the peer server's serve-batch shapes once the hold
+    is lifted.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernel table as JSON.  Exits non-zero without a result when CUDA is not
@@ -2806,16 +2811,26 @@ HELD = {"K1": ("block_kernels", "block_gather", _hold_gather), "K2": ("block_ker
         "K6": ("radix", "radix_sort_rows", _hold_radix)}
 
 
+def _snapshot(got):
+    """A copy of a kernel's result (a tensor or a tuple of them)."""
+    return tuple(t.clone() for t in got) if isinstance(got, tuple) else got.clone()
+
+
 class _Held:
     """One kernel's wrapper during a held run (:func:`holding`).  Calls from
     several threads (phase 23's servers) run one at a time, so each call's
-    launches are its own."""
+    launches are its own.  A deferred wrapper keeps each call's inputs and a
+    device copy of its result, and :meth:`settle` checks them later: the
+    plain version (Python loops of slice copies) then stays off the clock
+    and off the GIL of the threads being timed."""
 
-    def __init__(self, label: str, name: str, real, check, keep_last: bool):
+    def __init__(self, label: str, name: str, real, check, keep_last: bool, defer: bool = False):
         self.label, self.name, self.real, self.check, self.keep_last = label, name, real, check, keep_last
+        self.defer = defer
         # the kernel's own ``launches += 1`` lands here meanwhile, whoever calls it
         self.launches = self.held = self.held_launches = 0
-        self.last = None
+        self.last = self.failed = None
+        self.pending = []  # deferred calls: (call number, args, result copy, dst before the call)
         self._lock = threading.Lock()
 
     def __call__(self, *args, **kwargs):
@@ -2823,8 +2838,12 @@ class _Held:
             before = args[4].clone() if self.label == "K2" else None  # K2 scatters into dst in place
             launched = self.launches
             got = self.real(*args, **kwargs)
-            assert self.check(args, got, before), (
-                f"{self.label} ({self.name}) differs from its plain version on call {self.held}")
+            if self.defer:
+                self.pending.append((self.held, args, _snapshot(got), before))
+            elif not self.check(args, got, before):
+                # kept: a server thread's caller may turn the raise into a broken reply
+                self.failed = f"{self.label} ({self.name}) differs from its plain version on call {self.held}"
+                raise AssertionError(self.failed)
             del before
             self.held += 1
             self.held_launches += self.launches - launched
@@ -2832,19 +2851,29 @@ class _Held:
                 self.last = (args, kwargs)
             return got
 
+    def settle(self) -> None:
+        """Check the deferred calls against the plain version, then drop them."""
+        with self._lock:
+            pending, self.pending = self.pending, []
+        for number, args, got, before in pending:
+            if not self.check(args, got, before):
+                self.failed = f"{self.label} ({self.name}) differs from its plain version on call {number}"
+                raise AssertionError(self.failed)
 
-def holding(kernels: dict, keep_last: bool = False) -> tuple:
+
+def holding(kernels: dict, keep_last: bool = False, defer: bool = False) -> tuple:
     """Hold every call of each kernel against its plain version: ``kernels``
     maps a label to ``(name, function, check)``; the function is replaced, in every
     loaded ``sparkucx_tpu_torch`` module that holds it, by a wrapper that calls
     it, then ``check(args, result, dst before the call (K2) or None)`` on the
-    same inputs, and fails on a difference.  The kernels' own launch counts
-    stay as they were meanwhile.  Returns ``(wrappers, restore)``;
+    same inputs, and fails on a difference (with ``defer``, on a copy of the
+    result when the wrapper's ``settle`` is called).  The kernels' own launch
+    counts stay as they were meanwhile.  Returns ``(wrappers, restore)``;
     ``wrapper.held`` counts its calls; with ``keep_last``, ``wrapper.last``
     keeps the last one's arguments (and so its tensors)."""
     patched, wrappers = [], {}
     for label, (name, real, check) in kernels.items():
-        wrappers[label] = wrapper = _Held(label, name, real, check, keep_last)
+        wrappers[label] = wrapper = _Held(label, name, real, check, keep_last, defer)
         for key, mod in list(sys.modules.items()):
             if key.startswith("sparkucx_tpu_torch") and getattr(mod, name, None) is real:
                 setattr(mod, name, wrapper)
@@ -3344,20 +3373,43 @@ def _check_batch(got, lengths, host, starts, r, first_map=0) -> int:
     return nbytes
 
 
-def daemon_groupby(device, n: int, mode: str, data, clients: int = 4) -> dict:
+def launch_marks(wrappers: dict) -> dict:
+    """Each held kernel's (launches, launches inside held calls) so far
+    (``wrappers`` from :func:`holding`)."""
+    return {label: (w.launches, w.held_launches) for label, w in wrappers.items()}
+
+
+def launched_since(wrappers: dict, marks: dict) -> dict:
+    """label -> launches since ``marks`` (:func:`launch_marks`) for each
+    kernel launched, once every deferred call has been checked against its
+    plain version (``settle``); fails if any launch fell outside a held
+    call."""
+    out = {}
+    for w in wrappers.values():
+        w.settle()
+    for label, w in wrappers.items():
+        n, h = w.launches - marks[label][0], w.held_launches - marks[label][1]
+        assert n == h, f"{label}: {n} launches since the mark, {h} of them in held calls"
+        if n:
+            out[label] = n
+    return out
+
+
+def daemon_groupby(device, n: int, mode: str, data, wrappers: dict, serve_batches: list, clients: int = 4) -> dict:
     """Phase 23 (a): a ``ShuffleDaemon`` with ``n`` executors on the card,
     ``clients`` ``DaemonClient`` connections writing GroupByTest's map output
     over loopback TCP (CreateShuffle, OpenMapWriter, WritePartition,
     CommitMap: the committed lengths held against the written ones), one
-    RunExchange (its kernels counted), then every reducer's blocks in one
+    RunExchange (K1 once a receiver), then every reducer's blocks in one
     FetchBlock batch each, every byte held against the written ones, under
-    ``hostRecvMode=mode``.  Under ``device`` the fetches run once more with
-    every K1 call held against its plain version (one launch a batch: a
-    reducer's blocks lie in one round on one consumer), the last timed at
-    the serve-batch shape."""
+    ``hostRecvMode=mode`` (under ``device`` K1 once a batch: a reducer's
+    blocks lie in one round on one consumer; none under ``array``), then the
+    serving side alone (every batch resolved to host views, no socket).
+    Every kernel call is held against its plain version (``wrappers``,
+    :func:`holding`); a serve batch's K1 call goes to ``serve_batches``, to be
+    timed once the hold is lifted."""
     from sparkucx_tpu_torch.config import TpuShuffleConf
     from sparkucx_tpu_torch.core.block import ShuffleBlockId
-    from sparkucx_tpu_torch.ops import block_kernels, ring_kernels
     from sparkucx_tpu_torch.shuffle.daemon import DaemonClient, ShuffleDaemon
     from sparkucx_tpu_torch.store.hbm_store import default_peer_ranges
 
@@ -3372,6 +3424,7 @@ def daemon_groupby(device, n: int, mode: str, data, clients: int = 4) -> dict:
     d = ShuffleDaemon(conf, num_executors=n, devices=[device] * n)
     cs = [DaemonClient(d.address, conf) for _ in range(clients)]
     sid = 0
+    serve = {"K1": reducers} if mode == "device" else {}
     out = {"executors": n, "mode": mode, "payload_gb": payload / 1e9, "blocks": int(mappers * reducers)}
     try:
         cs[0].create_shuffle(sid, mappers, reducers)
@@ -3386,25 +3439,35 @@ def daemon_groupby(device, n: int, mode: str, data, clients: int = 4) -> dict:
                         c.write_partition(w, r, memoryview(host[m])[int(starts[m, r]) : int(starts[m, r]) + ln])
                 assert c.commit_map(w).tolist() == lengths[m].tolist(), f"map {m}: committed lengths differ"
 
+        mark = launch_marks(wrappers)
         _, out["write_s"] = wall(lambda: run_threads(write, clients))
-        block_kernels.block_gather.launches = block_kernels.block_scatter.launches = 0
-        ring_kernels.ring_exchange_grid.launches = 0
+        assert not launched_since(wrappers, mark), "a daemon write launched a kernel"
+        mark = launch_marks(wrappers)
         _, out["run_exchange_s"] = wall(lambda: cs[0].run_exchange(sid))
-        out["exchange_launches"] = {"K1": block_kernels.block_gather.launches,
-                                    "K2": block_kernels.block_scatter.launches,
-                                    "K3": ring_kernels.ring_exchange_grid.launches}
-        assert out["exchange_launches"] == {"K1": n, "K2": 0, "K3": 0}, out["exchange_launches"]
+        out["exchange_launches"] = launched_since(wrappers, mark)
+        assert out["exchange_launches"] == {"K1": n}, out["exchange_launches"]
         out["device_ms"] = d.manager.cluster.device_times_ms(sid)
         assert cs[0].stats(sid)["exchanged"]
 
-        def fetch(k):
+        def fetch(k, upto=reducers):
             return [(r, cs[k].fetch_blocks([ShuffleBlockId(sid, m, r) for m in range(mappers)]))
-                    for r in range(k, reducers, clients)]
+                    for r in range(k, upto, clients)]
 
+        mark = launch_marks(wrappers)
         fetched, out["fetch_s"] = wall(lambda: run_threads(fetch, clients))
+        out["fetch_launches"] = launched_since(wrappers, mark)
+        assert out["fetch_launches"] == serve, f"K1 once a FetchBlock batch under 'device': {out['fetch_launches']}"
         checked = sum(_check_batch(got, lengths, host, starts, r) for part in fetched for r, got in part)
         assert checked == payload
         del fetched
+        if serve:
+            serve_batches.append((out, f"the daemon's serve batch (n={n})", wrappers["K1"].last[0][:5]))
+            # the card's share of the serving work: the first 20 reducers' batches again, traced
+            mark = launch_marks(wrappers)
+            few = min(20, reducers)
+            out["fetch_busy"] = profile_call(f"the daemon's fetch of {few} reducers (n={n}, 'device')",
+                                             lambda: run_threads(lambda k: fetch(k, few), clients))
+            assert launched_since(wrappers, mark) == {"K1": few}
         # the serving side's own leg, no socket: every batch resolved to host
         # views (slices of the host shards; under 'device' K1 and one copy to
         # page-locked memory a batch), on one thread
@@ -3414,22 +3477,9 @@ def daemon_groupby(device, n: int, mode: str, data, clients: int = 4) -> dict:
             for r in range(reducers):  # each batch's views dropped as a send would drop them
                 cluster.received_block_views([ShuffleBlockId(sid, m, r) for m in range(mappers)])
 
+        mark = launch_marks(wrappers)
         _, out["resolve_s"] = wall(resolve)
-        if mode == "device":
-            wrappers, restore = holding(held_kernels(("K1",)), keep_last=True)
-            try:
-                fetched, out["held_fetch_s"] = wall(lambda: run_threads(fetch, clients))
-            finally:
-                restore()
-            held = wrappers["K1"]
-            out["fetch_launches"] = {"K1": held.launches}
-            assert held.launches == held.held_launches == held.held == reducers, (
-                f"K1 once a FetchBlock batch: {held.launches} launches, {held.held_launches} in {held.held} held calls")
-            assert sum(_check_batch(got, lengths, host, starts, r) for part in fetched for r, got in part) == payload
-            del fetched
-            args = held.last[0]
-            out["k1_serve_batch"] = check_k1_calls(device, f"the daemon's serve batch (n={n})", [args[:5]])
-            out["k1_held_calls"] = held.held
+        assert launched_since(wrappers, mark) == serve
         cs[0].remove_shuffle(sid)
     finally:
         for c in cs:
@@ -3441,26 +3491,86 @@ def daemon_groupby(device, n: int, mode: str, data, clients: int = 4) -> dict:
         f"{out['write_s']:.3f} s ({out['write_gbps']:.3f} GB/s over {clients} connections), RunExchange "
         f"{out['run_exchange_s'] * 1e3:.2f} ms (seal {out['device_ms'].get('seal', 0):.2f}, exchange "
         f"{out['device_ms'].get('exchange', 0):.2f} ms on the device; launches {out['exchange_launches']}), "
-        f"fetch {out['fetch_s']:.3f} s ({out['fetch_gbps']:.3f} GB/s), every byte equal to the written ones; "
-        f"the batches resolved to host views alone, one thread: {out['resolve_s']:.3f} s")
-    if mode == "device":
-        log(f"    held run: K1 once a FetchBlock batch ({out['fetch_launches']}), each of its {out['k1_held_calls']} calls "
-            f"equal to its plain version, {out['held_fetch_s']:.3f} s")
+        f"fetch {out['fetch_s']:.3f} s ({out['fetch_gbps']:.3f} GB/s; launches {out['fetch_launches']}), every "
+        f"byte equal to the written ones; the batches resolved to host views alone, one thread: "
+        f"{out['resolve_s']:.3f} s; every kernel call held against its plain version")
     return out
 
 
-def daemon_fixtures(device) -> dict:
+def daemon_write_split(device, data, maps: int = 40) -> dict:
+    """Where a daemon write's wall time goes, measured on the daemon itself:
+    the first ``maps`` mappers' blocks written to a daemon with one executor
+    (``array``) over one connection, every WritePartition's round trip timed
+    on the client (the frame sent, its ack parsed); then over four
+    connections; then over four with the interpreter's thread switch interval
+    cut from its 5 ms to 0.1 ms (the clients' and the daemon's threads share
+    one GIL: a thread that wakes from a socket wait queues for it for up to
+    one interval while another runs Python)."""
+    from sparkucx_tpu_torch.config import TpuShuffleConf
+    from sparkucx_tpu_torch.shuffle.daemon import DaemonClient, ShuffleDaemon
+
+    lengths, _, host, starts = data
+    maps = min(maps, lengths.shape[0])
+    lengths = lengths[:maps]
+    reducers = lengths.shape[1]
+    padded = int((-(-lengths // ROW) * ROW).sum())
+    conf = TpuShuffleConf(block_alignment=ROW, staging_capacity_per_executor=padded, num_executors=1)
+    gb = int(lengths.sum()) / 1e9
+    out = {"maps": maps, "gb": gb, "frames": int((lengths > 0).sum())}
+    default = sys.getswitchinterval()
+    for key, clients, switch in (("one_connection", 1, default), ("four_connections", 4, default),
+                                 ("four_connections_switch_0.1ms", 4, 1e-4)):
+        d = ShuffleDaemon(conf, num_executors=1, devices=[device])
+        cs = [DaemonClient(d.address, conf) for _ in range(clients)]
+        rtts = []
+        try:
+            cs[0].create_shuffle(0, maps, reducers)
+
+            def write(k):
+                c, mine = cs[k], []
+                for m in range(k, maps, clients):
+                    w = c.open_map_writer(0, m)
+                    for r in range(reducers):
+                        ln = int(lengths[m, r])
+                        if ln:
+                            t0 = time.perf_counter()
+                            c.write_partition(w, r, memoryview(host[m])[int(starts[m, r]) : int(starts[m, r]) + ln])
+                            mine.append(time.perf_counter() - t0)
+                    assert c.commit_map(w).tolist() == lengths[m].tolist()
+                rtts.extend(mine)
+
+            sys.setswitchinterval(switch)
+            try:
+                _, secs = wall(lambda: run_threads(write, clients))
+            finally:
+                sys.setswitchinterval(default)
+        finally:
+            for c in cs:
+                c.close()
+            d.close()
+        rt = np.asarray(rtts) * 1e6
+        out[key] = {"s": secs, "gbps": gb / secs, "rtt_p50_us": float(np.percentile(rt, 50)),
+                    "rtt_p99_us": float(np.percentile(rt, 99))}
+    log(f"  a daemon write measured, the first {maps} mappers ({gb:.3f} GB, {out['frames']} frames): "
+        + "; ".join(f"{k.replace('_', ' ')} {v['gbps']:.3f} GB/s, a WritePartition round trip "
+                    f"p50 {v['rtt_p50_us']:.0f} us, p99 {v['rtt_p99_us']:.0f} us"
+                    for k, v in out.items() if isinstance(v, dict)))
+    return out
+
+
+def daemon_fixtures(device, wrappers: dict) -> dict:
     """Phase 23 (a), last: the raw ``jvm/fixtures/*.bin`` frames against a
     daemon on the card (``hostRecvMode=device``), in the order of
     ``tests/test_daemon.py``'s replay: every ack ok, the fetch replies' sizes
-    and bytes as the shim expects, a removed shuffle's fetch all misses, and
-    the oversized frame dropping only its own connection."""
+    and bytes as the shim expects (K1 once a fetch frame), a removed
+    shuffle's fetch all misses, and the oversized frame dropping only its own
+    connection.  Every kernel call is held against its plain version
+    (``wrappers``, :func:`holding`)."""
     import socket
     import struct
 
     from sparkucx_tpu_torch.config import TpuShuffleConf
     from sparkucx_tpu_torch.core.block import ShuffleBlockId
-    from sparkucx_tpu_torch.ops import block_kernels
     from sparkucx_tpu_torch.shuffle.daemon import DaemonClient, ShuffleDaemon, _read_frame
 
     here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "jvm", "fixtures")
@@ -3488,6 +3598,7 @@ def daemon_fixtures(device) -> dict:
         return [struct.unpack_from("<q", reply, 12 + 8 * i)[0] for i in range(count)], body
 
     m0, m1r6, m3 = b"\xaa" * 100, b"\xcc" * 77, b"\xbb" * 300
+    start = launch_marks(wrappers)
     try:
         ack("01_create_shuffle.bin")
         burn = [client.open_map_writer(FIX_SHUFFLE, m) for m in (0, 1, 3)]
@@ -3500,12 +3611,14 @@ def daemon_fixtures(device) -> dict:
         assert np.frombuffer(ack("04_commit_map.bin")[1], "<i8")[FIX_REDUCE] == len(FIX_BODY)
         for w in burn:
             client.commit_map(w)
+        mark = launch_marks(wrappers)
         ack("05_run_exchange.bin")
-        block_kernels.block_gather.launches = 0
+        assert launched_since(wrappers, mark) == {"K1": 1}, "K1 once at the fixture RunExchange (one receiver)"
+        mark = launch_marks(wrappers)
         assert fetch("06_fetch.bin") == ([100, 300], m0 + m3)
         assert fetch("08_fetch_aqe_maprange.bin") == ([0, 256], FIX_BODY)
         assert fetch("09_fetch_coalesced_empty.bin") == ([100, 0, 0, 77, 256, 0, 300, 0], m0 + m1r6 + FIX_BODY + m3)
-        launches = block_kernels.block_gather.launches
+        launches = launched_since(wrappers, mark).get("K1", 0)
         assert launches == 3, f"K1 once a fixture fetch: {launches}"
         ack("07_remove_shuffle.bin")
         assert fetch("06_fetch.bin") == ([-1, -1], b"")
@@ -3523,9 +3636,12 @@ def daemon_fixtures(device) -> dict:
         raw.close()
         client.close()
         d.close()
+    total = launched_since(wrappers, start)
+    assert total == {"K1": 1 + 3 + 2}, f"the replay and the shuffle after it: {total}"
     log(f"  the JVM shim's {len(fx)} fixture frames against the daemon on the card: every reply as the shim "
-        f"expects, K1 {launches} (one a fetch), the oversized frame dropped and the daemon serving after it")
-    return {"frames": len(fx), "fetch_launches": {"K1": launches}}
+        f"expects, K1 {launches} in the fetches (one a fetch), {total['K1']} in all, each held against its plain "
+        "version; the oversized frame dropped and the daemon serving after it")
+    return {"frames": len(fx), "fetch_launches": {"K1": launches}, "launches": total}
 
 
 def _recv_all(sock, n: int) -> bytes:
@@ -3537,21 +3653,24 @@ def _recv_all(sock, n: int) -> bytes:
     return out
 
 
-def peer_device_staged(device, data, checksum_maps: int = 40) -> dict:
+def peer_device_staged(device, data, wrappers: dict, serve_batches: list, checksum_maps: int = 40,
+                       split_reducers: int = 40) -> dict:
     """Phase 23 (b): two ``PeerTransport``s in one process.  Executor 0's
     store stages GroupByTest's map output on the card through
     ``write_partition_device`` and seals it (K2 once); executor 1 fetches
     every block over loopback TCP, one reducer's blocks a batch, at
-    ``wire.streams`` 1 and 4 (K1 once a batch on executor 0's serving side,
-    counted), then once more at streams 1 with every K1 call held against
-    its plain version, the last timed at the serve-batch shape; then with
-    ``wire.checksum`` on at both ends (a second serving plane over the same
-    store), streams 4, over one reducer's first ``checksum_maps`` blocks
-    (CRC32C is pure Python, a few MB/s).  Every fetched byte equal to the
-    written ones."""
+    ``wire.streams`` 1 and 4 (K1 once a batch on executor 0's serving side);
+    then with ``wire.checksum`` on at both ends (a second serving plane over
+    the same store), streams 4, over one reducer's first ``checksum_maps``
+    blocks (CRC32C is pure Python, a few MB/s); then the first
+    ``split_reducers`` reducers again at streams 1 and 4 with the
+    interpreter's thread switch interval cut from 5 ms to 0.1 ms (the
+    server's lanes and the client's share one GIL).  Every fetched byte equal
+    to the written ones, every kernel call held against its plain version
+    (``wrappers``, :func:`holding`); a serve batch's K1 call goes to
+    ``serve_batches``, to be timed once the hold is lifted."""
     from sparkucx_tpu_torch.config import TpuShuffleConf
     from sparkucx_tpu_torch.core.block import MemoryBlock, ShuffleBlockId
-    from sparkucx_tpu_torch.ops import block_kernels
     from sparkucx_tpu_torch.transport.peer import PeerTransport
 
     lengths, blocks, host, starts = data
@@ -3563,6 +3682,7 @@ def peer_device_staged(device, data, checksum_maps: int = 40) -> dict:
     server = PeerTransport(TpuShuffleConf(**base), executor_id=0, device=device)
     addr = server.init()
     out = {"payload_gb": payload / 1e9, "blocks": int(mappers * reducers)}
+    default = sys.getswitchinterval()
     try:
         server.store.create_shuffle(0, mappers, reducers)
         for m in range(mappers):
@@ -3570,82 +3690,91 @@ def peer_device_staged(device, data, checksum_maps: int = 40) -> dict:
             for r in range(reducers):
                 w.write_partition_device(r, blocks[m][r], length=int(lengths[m, r]))
             w.commit()
-        block_kernels.block_scatter.launches = block_kernels.block_gather.launches = 0
+        mark = launch_marks(wrappers)
         _, out["seal_s"] = wall(lambda: server.store.seal(0))
-        out["seal_launches"] = {"K1": block_kernels.block_gather.launches, "K2": block_kernels.block_scatter.launches}
-        assert out["seal_launches"] == {"K1": 0, "K2": 1}, out["seal_launches"]
+        out["seal_launches"] = launched_since(wrappers, mark)
+        assert out["seal_launches"] == {"K2": 1}, out["seal_launches"]
         bufs = [MemoryBlock(np.zeros(max(1, int(lengths[m].max())), np.uint8), size=max(1, int(lengths[m].max())))
                 for m in range(mappers)]
 
-        def fetch_all(client, maps=mappers, rs=range(reducers)):
+        def fetch_all(client, maps, rs):
+            """Each reducer's non-empty blocks in one batch, as a Spark
+            reducer asks (it skips the blocks its map statuses size 0; the
+            store answers an empty block of a device round as missing)."""
             nbytes = 0
             for r in rs:
-                for b in bufs[:maps]:
-                    b.size = b.data.size  # a fetch leaves the block's size behind
-                reqs = client.fetch_blocks_by_block_ids(0, [ShuffleBlockId(0, m, r) for m in range(maps)],
-                                                        bufs[:maps], [None] * maps)
+                ms = [m for m in range(maps) if lengths[m, r]]
+                for m in ms:
+                    bufs[m].size = bufs[m].data.size  # a fetch leaves the block's size behind
+                reqs = client.fetch_blocks_by_block_ids(0, [ShuffleBlockId(0, m, r) for m in ms],
+                                                        [bufs[m] for m in ms], [None] * len(ms))
                 deadline = time.monotonic() + 120
                 while not all(q.completed() for q in reqs):
                     client.progress()
                     client.wait_for_activity(0.002)
                     assert time.monotonic() < deadline, f"reducer {r}: fetch timed out"
-                got = []
-                for q, b in zip(reqs, bufs[:maps]):
+                got = [b""] * maps
+                for m, q in zip(ms, reqs):
                     res = q.wait(1)
-                    assert res.status.name == "SUCCESS", f"reducer {r}: {res.error}"
-                    got.append(b.host_view()[: b.size].tobytes())
+                    assert res.status.name == "SUCCESS", f"block ({m}, {r}): {res.error}"
+                    got[m] = bufs[m].host_view()[: bufs[m].size].tobytes()
                 nbytes += _check_batch(got, lengths, host, starts, r)
             return nbytes
 
-        for streams, checksum in ((1, False), (4, False), (4, True)):
+        runs = (("streams1", 1, False, mappers, reducers, default), ("streams4", 4, False, mappers, reducers, default),
+                ("streams4_checksum", 4, True, min(checksum_maps, mappers), 1, default),
+                ("streams1_switch_0.1ms", 1, False, mappers, min(split_reducers, reducers), 1e-4),
+                ("streams4_switch_0.1ms", 4, False, mappers, min(split_reducers, reducers), 1e-4))
+        for key, streams, checksum, maps, rs, switch in runs:
             conf = TpuShuffleConf(**base, wire_streams=streams, wire_checksum=checksum)
             client = PeerTransport(conf, executor_id=1, device=device)
+            checked = None
             if checksum:  # the server decides whether chunk frames carry a CRC
                 checked = PeerTransport(conf, executor_id=0, store=server.store)
                 client.add_executor(0, checked.init())
             else:
                 client.add_executor(0, addr)
-            key = f"streams{streams}" + ("_checksum" if checksum else "")
             try:
-                if checksum:
-                    try:
-                        nbytes, secs = wall(lambda: fetch_all(client, maps=min(checksum_maps, mappers), rs=range(1)))
-                    finally:
-                        checked.server.close()
-                    out[key] = {"gb": nbytes / 1e9, "s": secs, "gbps": nbytes / 1e9 / secs, "blocks": min(checksum_maps, mappers)}
-                    continue
-                block_kernels.block_gather.launches = 0
-                nbytes, secs = wall(lambda: fetch_all(client))
-                assert nbytes == payload
+                mark = launch_marks(wrappers)
+                sys.setswitchinterval(switch)
+                try:
+                    nbytes, secs = wall(lambda: fetch_all(client, maps, range(rs)))
+                finally:
+                    sys.setswitchinterval(default)
                 row = {"gb": nbytes / 1e9, "s": secs, "gbps": nbytes / 1e9 / secs,
-                       "launches": {"K1": block_kernels.block_gather.launches}}
+                       "blocks": int((lengths[:maps, :rs] > 0).sum()),
+                       "launches": launched_since(wrappers, mark)}
                 # a request is served on the thread of the lane it came in on: the counts are exact
-                assert row["launches"] == {"K1": reducers}, f"K1 once a fetch batch: {row['launches']}"
-                if streams == 1:
-                    wrappers, restore = holding(held_kernels(("K1",)), keep_last=True)
-                    try:
-                        assert fetch_all(client) == payload
-                    finally:
-                        restore()
-                    held = wrappers["K1"]
-                    assert held.launches == held.held_launches == held.held == reducers
-                    row["held_calls"] = held.held
-                    out["k1_serve_batch"] = check_k1_calls(device, "the peer server's serve batch", [held.last[0][:5]])
+                assert row["launches"] == {"K1": rs}, f"K1 once a fetch batch: {row['launches']}"
+                assert nbytes == int(lengths[:maps, :rs].sum())
+                if key == "streams1":
+                    serve_batches.append((out, "the peer server's serve batch", wrappers["K1"].last[0][:5]))
+                    mark = launch_marks(wrappers)
+                    few = min(20, reducers)
+                    row["busy"] = profile_call(f"the peer fetch of {few} reducers (streams 1)",
+                                               lambda: fetch_all(client, maps, range(few)))
+                    assert launched_since(wrappers, mark) == {"K1": few}
                 lanes = client.wire_lane_stats()
                 row["syscalls_per_mb"] = sum(x["rx_syscalls"] for x in lanes) / max(sum(x["rx_bytes"] for x in lanes) / 1e6, 1e-9)
                 row["p99_frame_stall_ms"] = max(x["rx_stall_p99_ns"] for x in lanes) / 1e6
                 out[key] = row
             finally:
                 client.close()
+                if checked is not None:
+                    checked.server.close()
+        assert out["streams1"]["gb"] == out["streams4"]["gb"] == payload / 1e9
     finally:
         server.close()
     log(f"  peer to peer, device-staged: {out['payload_gb']:.3f} GB in {out['blocks']} blocks, seal "
         f"{out['seal_s'] * 1e3:.2f} ms ({out['seal_launches']}); fetch streams 1 {out['streams1']['gbps']:.3f} GB/s "
-        f"(K1 {out['streams1']['launches']['K1']}, one a batch; every K1 call of a second run held: "
-        f"{out['streams1']['held_calls']}), streams 4 {out['streams4']['gbps']:.3f} GB/s "
+        f"(K1 {out['streams1']['launches']['K1']}, one a batch), streams 4 {out['streams4']['gbps']:.3f} GB/s "
         f"(K1 {out['streams4']['launches']['K1']}); checksum on, streams 4, "
         f"{out['streams4_checksum']['blocks']} blocks: {out['streams4_checksum']['gbps'] * 1e3:.2f} MB/s; "
-        "every byte equal to the written ones")
+        "every byte equal to the written ones, every kernel call held against its plain version")
+    for key in ("streams1", "streams4", "streams1_switch_0.1ms", "streams4_switch_0.1ms"):
+        row = out[key]
+        log(f"    {key.replace('_', ' ')}: {row['gbps']:.3f} GB/s over {row['blocks']} blocks, "
+            f"{row['syscalls_per_mb']:.1f} receive syscalls/MB, p99 frame stall {row['p99_frame_stall_ms']:.2f} ms")
     return out
 
 
@@ -3770,22 +3899,55 @@ def serving_plane(device, seed: int, mappers: int = 200, reducers: int = 200, kv
     """Phase 23: the Spark-facing daemon and the peer wire on the card, at
     GroupByTest's big gate: numKVPairs cut to 1000 for the peers (as in
     phase 3, ~5 GB) and to ``daemon_kv_pairs`` for the daemon, whose host
-    route (a JSON frame, an ack and three host copies a block) moves ~0.27
-    GB/s: the four daemon runs at 5 GB took 117 s of the phase."""
-    data = groupby_host_blocks(device, mappers, reducers, daemon_kv_pairs, value_bytes, seed)
+    route (a JSON frame, an ack and three host copies a block) moves ~0.11
+    GB/s.  Every call of K1, K2, K3, K4 and K6 in the phase is held against
+    its plain version (:func:`holding`; each part checks its own launches
+    with :func:`launched_since`); the serve batches' K1 calls are timed
+    after the hold is lifted."""
+    wrappers, restore = holding(held_kernels(), keep_last=True, defer=True)
+    serve_batches = []  # (the part's result, label, K1 arguments)
     out = {"daemon": {}}
+    try:
+        serving_parts(device, seed, mappers, reducers, kv_pairs, value_bytes, daemon_kv_pairs, cli, wrappers,
+                      serve_batches, out)
+    except Exception as e:
+        failed = [w.failed for w in wrappers.values() if w.failed]
+        if failed:  # the part broke because a kernel call differed: say so
+            raise AssertionError("; ".join(failed)) from e
+        raise
+    finally:
+        restore()
+    for w in wrappers.values():
+        w.settle()
+    out["held_calls"] = {label: w.held for label, w in wrappers.items() if w.held}
+    assert {label: w.launches for label, w in wrappers.items()} == {
+        label: w.held_launches for label, w in wrappers.items()}, "a launch of phase 23 fell outside a held call"
+    log(f"  phase 23's held calls, each equal to its plain version: {out['held_calls']}")
+    for part, label, args in serve_batches:
+        part["k1_serve_batch"] = check_k1_calls(device, label, [args])
+    return out
+
+
+def serving_parts(device, seed, mappers, reducers, kv_pairs, value_bytes, daemon_kv_pairs, cli, wrappers,
+                  serve_batches, out) -> None:
+    """:func:`serving_plane`'s parts in order, their results into ``out``."""
+    data = groupby_host_blocks(device, mappers, reducers, daemon_kv_pairs, value_bytes, seed)
     for n, mode in ((1, "array"), (1, "device"), (4, "array"), (4, "device")):
-        out["daemon"][f"n{n}_{mode}"] = daemon_groupby(device, n, mode, data)
+        out["daemon"][f"n{n}_{mode}"] = daemon_groupby(device, n, mode, data, wrappers, serve_batches)
+    mark = launch_marks(wrappers)
+    out["daemon_write_split"] = daemon_write_split(device, data)
     out["daemon_write_costs"] = daemon_write_costs(data)
+    assert not launched_since(wrappers, mark)
     del data
-    out["fixtures"] = daemon_fixtures(device)
+    out["fixtures"] = daemon_fixtures(device, wrappers)
     data = groupby_host_blocks(device, mappers, reducers, kv_pairs, value_bytes, seed)
-    out["peer"] = peer_device_staged(device, data)
+    out["peer"] = peer_device_staged(device, data, wrappers, serve_batches)
     del data
     torch.cuda.empty_cache()
     if cli:
+        mark = launch_marks(wrappers)
         out["cli"] = cli_wire(device)
-    return out
+        assert not launched_since(wrappers, mark), "the wire modes serve host bytes: no kernel"
 
 
 def main() -> int:

@@ -89,9 +89,10 @@ def tensor_bytes(payload: torch.Tensor, offset: int, length: int) -> bytes:
 class DeviceRows(NamedTuple):
     """A block whose bytes lie in device memory: ``rows`` rows of ``src``
     from row ``start``, the first ``length`` bytes of them its payload.
-    ``round_buffer`` is True when ``src`` is a whole sealed round (the
-    block-scatter kernel's output), False when it is the block's own tensor
-    (a round not sealed yet)."""
+    ``round_buffer`` is True when ``src`` holds a whole round (a sealed
+    round, the block-scatter kernel's output, or a received shard kept on
+    the card), False when it is the block's own tensor (a round not sealed
+    yet)."""
 
     src: torch.Tensor
     start: int
@@ -102,7 +103,7 @@ class DeviceRows(NamedTuple):
 
 def land_device_rows(items: Sequence[DeviceRows]) -> List[Tuple[np.ndarray, int, int]]:
     """Host ``(uint8 array, offset, length)`` serving handles of
-    device-resident blocks, landed together: the blocks of one sealed round
+    device-resident blocks, landed together: the blocks of one round buffer
     are packed by one block-gather launch, blocks that are tensors of their
     own (a round not sealed yet) by one concatenation, and all of it comes to
     page-locked host memory in one copy (:func:`rows_to_host`).  The arrays
@@ -884,20 +885,16 @@ class HbmBlockStore:
             return self._device_rows_locked(st, e, map_id, reduce_id)
 
     def _device_rows_locked(self, st: _ShuffleState, e: _BlockEntry, map_id: int, reduce_id: int) -> Optional[DeviceRows]:
-        """Caller holds self._lock."""
-        if e.round < len(st.prev_rounds) or not st.device_mode:
-            return None
+        """Caller holds self._lock.  None off the device round, and for a
+        committed empty block of it: ``write_partition_device`` keeps no
+        tensor for one, so it is answered as missing, as in the JAX store."""
         rows = -(-e.length // st.alignment)
+        if e.round < len(st.prev_rounds) or not st.device_mode or not rows:
+            return None
         if st.sealed:
             return DeviceRows(st.sealed_payload[e.round], e.offset // st.alignment, rows, e.length, True)
         block = st.device_blocks.get((map_id, reduce_id))
-        if block is None:
-            if rows:
-                return None
-            # a committed empty block has no tensor: it is served as size 0
-            # (the JAX store answers it as missing, ROADMAP queue C3)
-            block = torch.empty((0, st.alignment // 4), dtype=torch.int32)
-        return DeviceRows(block, 0, rows, e.length, False)
+        return None if block is None else DeviceRows(block, 0, rows, e.length, False)
 
     def block_staging_view(
         self, shuffle_id: int, map_id: int, reduce_id: int
@@ -906,8 +903,9 @@ class HbmBlockStore:
         for a staged block, or None when unknown.  Host staging is append-only
         and retained until ``remove_shuffle``, so the view stays valid for the
         shuffle's lifetime.  A block of the device-staged round has no host
-        staging: it comes back as a private host copy of its rows (servers
-        take such blocks a batch at a time through ``block_device_rows``)."""
+        staging: it comes back as a private host copy of its rows, as from the
+        JAX store (servers land such blocks a batch at a time through
+        ``block_device_rows`` and never reach this arm)."""
         st = self._state(shuffle_id)
         e = st.blocks.get((map_id, reduce_id))
         if e is None:
@@ -917,7 +915,7 @@ class HbmBlockStore:
                 d = self._device_rows_locked(st, e, map_id, reduce_id)
                 if d is None:
                     return None
-                return land_device_rows([d])[0]
+                return np.frombuffer(tensor_bytes(d.src, d.start * st.alignment, d.length), np.uint8), 0, d.length
             staging = st.prev_rounds[e.round][0] if e.round < len(st.prev_rounds) else st.staging
         return staging, e.offset, e.length
 
@@ -960,6 +958,7 @@ class HbmBlockStore:
             for rnd in range(st.round + 1):
                 keys = sorted(k for k, e in st.blocks.items() if e.round == rnd and e.local)
                 entries = [(m, r, st.blocks[(m, r)].length) for m, r in keys]
+                keys = [k for k in keys if st.blocks[k].length]  # an empty block adds no bytes
                 if rnd >= len(st.prev_rounds) and st.device_mode:
                     items = []
                     for m, r in keys:

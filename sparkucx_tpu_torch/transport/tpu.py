@@ -76,7 +76,7 @@ from sparkucx_tpu_torch.ops.skew import (
     reassemble_round,
     slice_subround,
 )
-from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore, default_peer_ranges, rows_to_host
+from sparkucx_tpu_torch.store.hbm_store import DeviceRows, HbmBlockStore, default_peer_ranges, land_device_rows
 from sparkucx_tpu_torch.transport.executor import (
     build_plan_exchange,
     execute_plan,
@@ -615,29 +615,29 @@ class TpuShuffleCluster:
         blocks, each read by the executor that owns its reducer, or None for a
         block that cannot be served (unknown shuffle, map or reducer).  Host
         shards ('array', 'memmap') are sliced in place.  Blocks of shards
-        kept on the card ('device') are landed together: per (shuffle,
-        consumer), ``fetch_blocks_to_device`` packs them with one block-gather
-        launch per staging round, and the packed rows come to page-locked host
-        memory in one copy; the arrays keep that buffer alive."""
+        kept on the card ('device') are landed together
+        (``land_device_rows``): one block-gather launch per received shard
+        (round and consumer) the batch touches, then one copy to page-locked
+        host memory; the arrays keep that buffer alive."""
         out: List[Optional[Tuple[np.ndarray, int, int]]] = [None] * len(block_ids)
-        on_device: Dict[Tuple[int, int], List[int]] = {}
+        on_device: List[int] = []
+        items: List[DeviceRows] = []
         for i, bid in enumerate(block_ids):
             try:
                 meta = self.meta(bid.shuffle_id)
                 consumer = meta.owner_of_reduce(bid.reduce_id)
                 if meta.exchanged and meta.recv_shards is None:
-                    self._locate_rows(meta, consumer, bid.map_id, bid.reduce_id)  # raises for a bad block
-                    on_device.setdefault((bid.shuffle_id, consumer), []).append(i)
+                    rnd, row, rows = self._locate_rows(meta, consumer, bid.map_id, bid.reduce_id)
+                    length = meta.mapper_infos[bid.map_id].partitions[bid.reduce_id][1]
+                    items.append(DeviceRows(meta.recv_device[rnd][consumer], row, rows, length, True))
+                    on_device.append(i)
                     continue
                 view, length = self.locate_received_block(consumer, bid.shuffle_id, bid.map_id, bid.reduce_id)
                 out[i] = (np.ascontiguousarray(view[:length]).reshape(-1).view(np.uint8), 0, int(length))
             except (TransportError, ValueError, IndexError, KeyError):
                 pass  # answered as a miss (size -1), as the JAX daemon answers it
-        for (sid, consumer), idxs in on_device.items():
-            packed, entries = self.fetch_blocks_to_device(consumer, sid, [block_ids[i] for i in idxs])
-            flat = rows_to_host(packed)
-            for i, (row, length) in zip(idxs, entries.tolist()):
-                out[i] = (flat, row * self.row_bytes, length)
+        for i, view in zip(on_device, land_device_rows(items)):
+            out[i] = view
         return out
 
     def _locate_rows(

@@ -422,7 +422,7 @@ import torch  # noqa: E402
 import sparkucx_tpu.config as jax_config  # noqa: E402
 import sparkucx_tpu.core.block as jax_block  # noqa: E402
 import sparkucx_tpu.shuffle.daemon as jax_daemon  # noqa: E402
-import sparkucx_tpu_torch.transport.tpu as port_tpu  # noqa: E402
+import sparkucx_tpu_torch.store.hbm_store as port_store  # noqa: E402
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "jvm", "fixtures")
 
@@ -530,13 +530,13 @@ def test_full_shuffle_equals_the_jax_daemons(n, mode, monkeypatch):
     kw = dict(staging_capacity_per_executor=1 << 20, num_executors=n, host_recv_mode=mode,
               keep_device_recv=mode == "device")
     gathers = []
-    real = port_tpu.block_gather
+    real = port_store.block_gather
 
     def counting(*args, **kwargs):
         gathers.append(int(args[0].shape[0]))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(port_tpu, "block_gather", counting)  # the fetches' gathers, not the exchange's
+    monkeypatch.setattr(port_store, "block_gather", counting)  # the fetches' gathers (land_device_rows), not the exchange's
     d = ShuffleDaemon(TpuShuffleConf(**kw), num_executors=n)
     try:
         port = _shuffle_through(d, DaemonClient, ShuffleBlockId, 9, 5, 6)
@@ -574,13 +574,13 @@ def test_device_fetch_batch_is_one_gather_per_consumer(monkeypatch):
             c.commit_map(w)
         c.run_exchange(1)
         gathers = []
-        real = port_tpu.block_gather
+        real = port_store.block_gather
 
         def counting(*args, **kwargs):
             gathers.append(int(args[0].shape[0]))
             return real(*args, **kwargs)
 
-        monkeypatch.setattr(port_tpu, "block_gather", counting)
+        monkeypatch.setattr(port_store, "block_gather", counting)
         [a] = c.fetch_blocks([ShuffleBlockId(1, 1, 0)])
         assert a == bytes([4]) * 100 and gathers == [1]
         got = c.fetch_blocks([ShuffleBlockId(1, m, r) for r in range(4) for m in range(2)])

@@ -2,9 +2,13 @@
 ``PeerTransport``: the fault-injection harness (``sparkucx_tpu_torch/testing/
 faults.py``), seal-time neighbour replication and its settling, the ring
 placement, typed block-not-found errors and the gray-failure factories, stores
-on the CPU.  The reader's failover, executor-loss chaos through the reader and
-the demoted-round cases wait on the reader's hedges and the eviction manager,
-which are not ported.
+on the CPU.  Then the replica tier against the JAX package: a port peer pushes
+its sealed rounds to a JAX peer and the reverse, host-staged and device-staged,
+and after the source is killed the holder serves every block from its replicas,
+each run equal to the all-JAX run; ``replica_source`` and the REPLICA_PUT apply
+equal the JAX store's.  The reader's failover, executor-loss chaos through the
+reader and the demoted-round cases wait on the reader's hedges and the eviction
+manager, which are not ported.
 """
 
 import signal
@@ -298,3 +302,182 @@ class TestGrayFactories:
             assert ts[1].recorder.last_postmortem["seq"] == seq
         finally:
             _close_all(ts)
+
+
+# ---------------------------------------------------------------------------
+# parity with the JAX package: the replica tier across the two packages
+# ---------------------------------------------------------------------------
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import sparkucx_tpu.config as jax_config  # noqa: E402
+import sparkucx_tpu.core.block as jax_block  # noqa: E402
+import sparkucx_tpu.core.operation as jax_operation  # noqa: E402
+import sparkucx_tpu.store.hbm_store as jax_store  # noqa: E402
+import sparkucx_tpu.testing.faults as jax_faults  # noqa: E402
+import sparkucx_tpu.transport.peer as jax_peer  # noqa: E402
+from sparkucx_tpu_torch.store.hbm_store import HbmBlockStore  # noqa: E402
+
+ALIGN = 128
+
+
+def _conf_kw(device_staged, factor=1):
+    return dict(staging_capacity_per_executor=1 << 20, block_alignment=ALIGN, replication_factor=factor,
+                device_staging=device_staged)
+
+
+#: one package's pieces: transport and store makers, its faults module, its
+#: block id and buffer types, and how a row array of the device write is made
+PORT = dict(
+    transport=lambda kw, eid: PeerTransport(TpuShuffleConf(**kw), executor_id=eid),
+    store=lambda kw: HbmBlockStore(TpuShuffleConf(**kw)),
+    faults=faults, bid=ShuffleBlockId, buf=_buf, rows=torch.from_numpy,
+)
+JAX = dict(
+    transport=lambda kw, eid: jax_peer.PeerTransport(jax_config.TpuShuffleConf(gather_impl="xla", **kw),
+                                                     executor_id=eid),
+    store=lambda kw: jax_store.HbmBlockStore(jax_config.TpuShuffleConf(gather_impl="xla", **kw)),
+    faults=jax_faults, bid=jax_block.ShuffleBlockId,
+    buf=lambda n: jax_block.MemoryBlock(np.zeros(n, dtype=np.uint8), size=n), rows=jnp.asarray,
+)
+
+
+def _seeded_blocks(seed, num_mappers, num_reducers):
+    """{(map, reduce): payload}: lengths off every alignment, every fifth empty."""
+    rng = np.random.default_rng(seed)
+    return {
+        (m, r): rng.integers(0, 256, size=int(rng.integers(1, 3000)) if (m + r) % 5 else 0,
+                             dtype=np.uint8).tobytes()
+        for m in range(num_mappers) for r in range(num_reducers)
+    }
+
+
+def _write(store, side, payloads, shuffle_id, num_mappers, num_reducers, device_staged):
+    """Stage ``payloads`` on ``store``: host writes, or ``write_partition_device``
+    of (rows, lane) int32 arrays (CPU tensors for the port, jax arrays for JAX)."""
+    store.create_shuffle(shuffle_id, num_mappers, num_reducers)
+    for m in range(num_mappers):
+        w = store.map_writer(shuffle_id, m)
+        for r in range(num_reducers):
+            data = payloads[(m, r)]
+            if device_staged:
+                buf = np.zeros(-(-len(data) // ALIGN) * ALIGN, np.uint8)
+                buf[: len(data)] = np.frombuffer(data, np.uint8)
+                w.write_partition_device(r, side["rows"](buf.view(np.int32).reshape(-1, ALIGN // 4)), len(data))
+            else:
+                w.write_partition(r, data)
+        w.commit()
+
+
+def _replicate_then_kill(source, holder, device_staged, seed, shuffle_id=6, num_mappers=3, num_reducers=4):
+    """Executor 0 (package ``source``) stages seeded blocks and seals; the
+    seal pushes its rounds to its ring neighbour, executor 1 (package
+    ``holder``); executor 0 is killed; executor 2 (package ``source``) then
+    fetches every block of executor 0 from executor 1's replica tier over the
+    wire.  Returns (the source store's ``replica_source`` before the kill,
+    the pusher's counters, the holder store's ``replica_stats``, the fetched
+    bytes)."""
+    payloads = _seeded_blocks(seed, num_mappers, num_reducers)
+    kw = _conf_kw(device_staged)
+    ts = [source["transport"](kw, 0), holder["transport"](kw, 1)]
+    reader = None
+    try:
+        addrs = [t.init() for t in ts]
+        ts[0].add_executor(1, addrs[1])
+        ts[1].add_executor(0, addrs[0])
+        _write(ts[0].store, source, payloads, shuffle_id, num_mappers, num_reducers, device_staged)
+        ts[0].store.seal(shuffle_id)
+        assert ts[0].replication_wait(shuffle_id, timeout=10.0, strict=True)
+        snapshot = ts[0].store.replica_source(shuffle_id)
+        pushed = dict(ts[0].replica_stats)
+        held = ts[1].store.replica_stats()
+        source["faults"].kill_executor(ts[0])
+        reader = source["transport"](_conf_kw(device_staged, factor=0), 2)
+        reader.init()
+        reader.add_executor(1, addrs[1])
+        keys = sorted(payloads)
+        bufs = [source["buf"](max(1, len(payloads[k]))) for k in keys]
+        reqs = reader.fetch_blocks_by_block_ids(1, [source["bid"](shuffle_id, m, r) for m, r in keys], bufs,
+                                                [None] * len(keys))
+        deadline = time.monotonic() + 20
+        while not all(q.completed() for q in reqs):
+            reader.progress()
+            assert time.monotonic() < deadline, "the replica fetch did not complete"
+            time.sleep(0.001)
+        got = {}
+        for k, q, b in zip(keys, reqs, bufs):
+            res = q.wait(1)
+            assert res.status.name == "SUCCESS", f"block {k}: {res.error}"
+            got[k] = b.host_view()[: b.size].tobytes()
+        assert got == payloads
+        return snapshot, pushed, held, got
+    finally:
+        for t in ts + ([reader] if reader is not None else []):
+            t.close()
+
+
+class TestReplicaTierParity:
+    """A port peer pushes its sealed rounds to a JAX peer and the reverse, on
+    seeded host-staged and device-staged (CPU) shuffles; after the source is
+    killed every block is served from the holder's replica tier.  Each run
+    equals the all-JAX run: the source's ``replica_source``, the pusher's
+    counters, the holder's ``replica_stats`` and the served bytes."""
+
+    @pytest.mark.parametrize("device_staged", [False, True], ids=["host", "device"])
+    @pytest.mark.parametrize("direction", ["port_to_jax", "jax_to_port"])
+    def test_push_and_failover_serving_equal_jax(self, direction, device_staged):
+        source, holder = (PORT, JAX) if direction == "port_to_jax" else (JAX, PORT)
+        seed = 31 + device_staged
+        got = _replicate_then_kill(source, holder, device_staged, seed)
+        want = _replicate_then_kill(JAX, JAX, device_staged, seed)
+        assert got[0] == want[0]
+        assert got[1] == want[1] and got[1]["acks"] == got[1]["pushed_rounds"] == 1
+        assert got[2] == want[2] and got[2]["replica_sources"] == 1
+        assert got[3] == want[3]
+
+    @pytest.mark.parametrize("device_staged", [False, True], ids=["host", "device"])
+    @pytest.mark.parametrize("sealed", [False, True])
+    def test_replica_source_equals_jax_stores(self, device_staged, sealed):
+        payloads = _seeded_blocks(41 + 2 * device_staged + sealed, 4, 3)
+        kw = _conf_kw(device_staged)
+        port, ref = PORT["store"](kw), JAX["store"](kw)
+        try:
+            for store, side in ((port, PORT), (ref, JAX)):
+                _write(store, side, payloads, 2, 4, 3, device_staged)
+                if sealed:
+                    store.seal(2)
+            assert port.replica_source(2) == ref.replica_source(2)
+        finally:
+            port.close()
+            ref.close()
+
+    def test_put_replica_then_serve_equals_jax_store(self):
+        """The REPLICA_PUT apply: the same rounds installed in both stores
+        give the same ``replica_stats``, ``replica_view`` bytes and
+        ``replica_block`` answers, a repeated put replacing the old copy."""
+        payloads = _seeded_blocks(51, 2, 3)
+        entries = [(m, r, len(payloads[(m, r)])) for m, r in sorted(payloads)]
+        body = b"".join(payloads[(m, r)] for m, r, _ in entries)
+        kw = _conf_kw(False)
+        port, ref = PORT["store"](kw), JAX["store"](kw)
+        try:
+            for store in (port, ref):
+                store.put_replica(8, 3, 0, entries, body)
+                store.put_replica(8, 3, 0, entries, bytearray(body))  # replaces the first
+                store.put_replica(8, 4, 1, entries[:2], memoryview(body)[: entries[0][2] + entries[1][2]])
+            assert port.replica_stats() == ref.replica_stats()
+            for m, r in list(payloads) + [(9, 9)]:
+                pv, jv = port.replica_view(8, m, r), ref.replica_view(8, m, r)
+                assert (pv is None) == (jv is None)
+                if pv is not None:
+                    assert pv[0][pv[1] : pv[1] + pv[2]].tobytes() == jv[0][jv[1] : jv[1] + jv[2]].tobytes()
+                for src in (3, 4, 5):
+                    assert port.replica_block(8, src, m, r) == ref.replica_block(8, src, m, r)
+            with pytest.raises(TransportError):
+                port.put_replica(8, 3, 0, entries, body[:-1])
+            with pytest.raises(jax_operation.TransportError):
+                ref.put_replica(8, 3, 0, entries, body[:-1])
+        finally:
+            port.close()
+            ref.close()

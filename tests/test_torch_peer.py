@@ -536,7 +536,10 @@ def _stage_both(t, payloads, shuffle_id, num_mappers, num_reducers):
         w.commit()
 
 
-def _fetch_every(client, peer, mk_id, mk_buf, payloads, shuffle_id, timeout=20.0):
+def _fetch_every(client, peer, mk_id, mk_buf, payloads, shuffle_id, timeout=20.0, missing=()):
+    """Every block of ``payloads`` fetched in one call; the blocks of
+    ``missing`` must fail (the server answered them as not found) and are
+    left out of the result."""
     keys = sorted(payloads)
     bids = [mk_id(shuffle_id, m, r) for m, r in keys]
     bufs = [mk_buf(max(1, len(payloads[k]))) for k in keys]
@@ -545,9 +548,21 @@ def _fetch_every(client, peer, mk_id, mk_buf, payloads, shuffle_id, timeout=20.0
     got = {}
     for k, req, buf in zip(keys, reqs, bufs):
         res = req.wait(1)
+        if k in missing:
+            assert res.status.name == "FAILURE", f"block {k} was served"
+            continue
         assert res.status.name == "SUCCESS", str(res.error)
         got[k] = buf.host_view()[: buf.size].tobytes()
     return got
+
+
+def _served(payloads, device_staged):
+    """What a server answers for ``payloads``: a committed empty block of a
+    device-staged round keeps no tensor and is answered as missing, by the
+    JAX store and the port alike; every other block with its bytes."""
+    if not device_staged:
+        return payloads
+    return {k: v for k, v in payloads.items() if v}
 
 
 _WIRE = [(1, False, "off"), (4, False, "off"), (1, True, "off"), (4, True, "rle"), (1, False, "dict"), (4, True, "off")]
@@ -667,8 +682,8 @@ class TestDeviceStagedServing:
             a.add_executor(2, b.init())
             _device_stage(b, payloads, 0, 4, 3)
             b.store.seal(0)
-            got = _fetch_every(a, 2, ShuffleBlockId, _buf, payloads, 0)
-            assert got == payloads
+            got = _fetch_every(a, 2, ShuffleBlockId, _buf, payloads, 0, missing={(0, 0)})
+            assert got == _served(payloads, True)
             # 12 blocks in windows of 6: one gather a window, of its non-empty blocks
             assert gathers == [5, 6]
         finally:
@@ -683,8 +698,8 @@ class TestDeviceStagedServing:
             a.init()
             a.add_executor(2, b.init())
             _device_stage(b, payloads, 0, 2, 3)
-            got = _fetch_every(a, 2, ShuffleBlockId, _buf, payloads, 0)
-            assert got == payloads and gathers == []
+            got = _fetch_every(a, 2, ShuffleBlockId, _buf, payloads, 0, missing={(0, 0)})
+            assert got == _served(payloads, True) and gathers == []
         finally:
             a.close()
             b.close()
@@ -700,11 +715,57 @@ class TestDeviceStagedServing:
             server.store.seal(0)
             client.add_executor(2, server.init())
             got = _fetch_every(client, 2, jax_block.ShuffleBlockId,
-                               lambda n: jax_block.MemoryBlock(np.zeros(n, np.uint8), size=n), payloads, 0)
-            assert got == payloads and gathers == [11]
+                               lambda n: jax_block.MemoryBlock(np.zeros(n, np.uint8), size=n), payloads, 0,
+                               missing={(0, 0)})
+            assert got == _served(payloads, True) and gathers == [11]
         finally:
             client.close()
             server.close()
+
+    @pytest.mark.parametrize("sealed", [False, True])
+    def test_reply_frames_equal_jax_servers(self, sealed):
+        """The same blocks staged through ``write_partition_device`` in a port
+        store and a JAX store give the same sizes blob (a committed empty
+        block and an unknown one both -1) and the same reply bytes, before
+        and after the seal; ``block_staging_view`` hands out the same bytes."""
+        import jax.numpy as jnp
+
+        import sparkucx_tpu.store.hbm_store as jax_store
+
+        payloads = _payloads(9, 2, 3)
+        kw = dict(staging_capacity_per_executor=1 << 20, block_alignment=128, device_staging=True)
+        port = HbmBlockStore(TpuShuffleConf(**kw))
+        ref = jax_store.HbmBlockStore(jax_config.TpuShuffleConf(gather_impl="xla", **kw))
+        for store, asarray in ((port, torch.from_numpy), (ref, jnp.asarray)):
+            store.create_shuffle(4, 2, 3)
+            for m in range(2):
+                w = store.map_writer(4, m)
+                for r in range(3):
+                    data = payloads[(m, r)]
+                    buf = np.zeros(-(-len(data) // 128) * 128, np.uint8)
+                    buf[: len(data)] = np.frombuffer(data, np.uint8)
+                    w.write_partition_device(r, asarray(buf.view(np.int32).reshape(-1, 32)), len(data))
+                w.commit()
+            if sealed:
+                store.seal(4)
+        p_srv = BlockServer(TpuShuffleConf(**kw), store=port)
+        j_srv = jax_peer.BlockServer(jax_config.TpuShuffleConf(**kw), store=ref)
+        try:
+            keys = [(m, r) for m in range(2) for r in range(3)] + [(0, 99)]
+            p_parts = p_srv._reply_parts(p_srv._resolve_batch([ShuffleBlockId(4, m, r) for m, r in keys]))
+            j_parts = j_srv._reply_parts([j_srv._resolve_one(jax_block.ShuffleBlockId(4, m, r)) for m, r in keys])
+            assert p_parts[0] == j_parts[0] and p_parts[2] == j_parts[2]
+            assert np.frombuffer(p_parts[0], "<i8")[0] == -1  # the empty block (0, 0)
+            assert b"".join(bytes(x) for x in p_parts[1]) == b"".join(bytes(x) for x in j_parts[1])
+            for m, r in keys:
+                p_view, j_view = port.block_staging_view(4, m, r), ref.block_staging_view(4, m, r)
+                assert (p_view is None) == (j_view is None), (m, r)
+                if p_view is not None:
+                    assert p_view[0][p_view[1] : p_view[1] + p_view[2]].tobytes() == \
+                        j_view[0][j_view[1] : j_view[1] + j_view[2]].tobytes()
+        finally:
+            p_srv.close()
+            j_srv.close()
 
     def test_replica_source_lands_the_round_once(self, gathers):
         kw = dict(staging_capacity_per_executor=1 << 21, replication_factor=1, device_staging=True)
